@@ -33,3 +33,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: integration tests that compile the fused train "
         "step (minutes cold, seconds warm via the persistent cache)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips without one")

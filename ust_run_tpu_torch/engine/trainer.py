@@ -1,0 +1,241 @@
+"""The training loop (port of the training half of
+ust_run_tpu/engine/trainer.py:72-460).
+
+  * datasets and samplers with the reference's split semantics
+    (train.py:464-494);
+  * the decoded corpus goes to the device once; each step receives only
+    the sampled indices (trainer.py:123-135);
+  * the epoch loop: num_eval_iter steps per epoch, LQ reset at epoch start
+    (train.py:576), epoch-end curriculum summaries (train.py:888-907);
+  * per-step logging with the reference's tag names (train.py:859-870).
+    The packed metrics of a step are copied to pinned host memory without
+    blocking and read one step later, so the host never waits on the step
+    it has just queued (trainer.py:274-282, 329-349).
+
+Evaluation, checkpoints, `--eval` and `--load` are not ported yet: they
+raise NotImplementedError, and an epoch end only logs.
+"""
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ust_run_tpu_torch.config import TrainConfig
+from ust_run_tpu_torch.data.datasets import SegmentationDataset
+from ust_run_tpu_torch.data.pipeline import BatchPipeline
+from ust_run_tpu_torch.semisup.state import create_train_state, reset_epoch
+from ust_run_tpu_torch.semisup.step import (HyperParams, step_fn,
+                                            unpack_metrics)
+from ust_run_tpu_torch.utils.device import resolve_device
+from ust_run_tpu_torch.utils.logging_utils import MetricWriter
+from ust_run_tpu_torch.utils.meters import AverageMeter
+
+
+def set_numerics():
+    """float32 matrix products and convolutions in full float32 (no TF32):
+    the band-matrix smoothing of the elastic fields must be float32, and
+    amp=0 runs should be float32 throughout. bf16 work comes from autocast
+    (amp=1) alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class _Pending:
+    """One step's packed metrics on their way to the host."""
+
+    def __init__(self, it, metrics, ulb_idx):
+        self.it = it
+        self.ulb_idx = ulb_idx
+        if metrics.device.type == "cuda":
+            self.host = torch.empty(metrics.shape, dtype=metrics.dtype,
+                                    pin_memory=True)
+            self.host.copy_(metrics, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = metrics, None
+
+    def fetch(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, snapshot_path):
+        if cfg.eval or cfg.load:
+            raise NotImplementedError(
+                "--eval / --load (evaluation and checkpoints) are not "
+                "ported to ust_run_tpu_torch yet")
+        if cfg.model != "unet":
+            raise NotImplementedError(f"model {cfg.model!r} is not ported")
+        self.cfg = cfg
+        self.snapshot_path = snapshot_path
+        self.device = resolve_device(cfg.device)
+        set_numerics()
+        p = cfg.profile()
+        self.profile_ = p
+        self.hp = HyperParams.from_config(cfg)
+
+        lb_num = cfg.labeled_count()
+        data_num = p.domain_len[cfg.lb_domain - 1]
+        domains = list(range(1, cfg.domain_num + 1))
+        self.lb_ds = SegmentationDataset(cfg.dataset, p, cfg.data_root,
+                                         "train", cfg.lb_domain,
+                                         [cfg.lb_domain],
+                                         list(range(lb_num)))
+        self.ulb_ds = SegmentationDataset(cfg.dataset, p, cfg.data_root,
+                                          "train", cfg.lb_domain, domains,
+                                          list(range(lb_num, data_num)))
+        self.lb_pipe = BatchPipeline(self.lb_ds, cfg.label_bs, seed=cfg.seed)
+        self.ulb_pipe = BatchPipeline(self.ulb_ds, cfg.unlabel_bs,
+                                      seed=cfg.seed + 1)
+
+        # the decoded corpus goes to the device ONCE; steps receive indices
+        corpus = {"lb_img": self.lb_ds.images, "lb_lab": self.lb_ds.labels,
+                  "ulb_img": self.ulb_ds.images,
+                  "ulb_lab": self.ulb_ds.labels, "ulb_dc": self.ulb_ds.dc}
+        self.device_data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device) for k, v in corpus.items()}
+        amp = bool(cfg.amp) and self.device.type == "cuda"
+        self.state = create_train_state(self.hp, cfg.seed, self.device,
+                                        amp=amp)
+        self.writer = MetricWriter(os.path.join(snapshot_path, "log"))
+        self.iter_num = 0
+        self._pending = None
+        self._meters = None
+        self.new_epoch(0)
+
+    # ------------------------------------------------------------------
+    def _next_batch(self):
+        idx = {"lb_idx": self.lb_pipe.next_indices(),
+               "ulb_idx": self.ulb_pipe.next_indices()}
+        dev = {}
+        for k, v in idx.items():
+            t = torch.from_numpy(np.asarray(v, np.int64))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            dev[k] = t
+        return idx, dev
+
+    def new_epoch(self, epoch_num):
+        n_part = self.profile_.n_part
+        reset_epoch(self.state, epoch_num)
+        self._meters = dict(
+            hardness=AverageMeter(),
+            simple=[AverageMeter() for _ in range(n_part)],
+            other=[AverageMeter() for _ in range(n_part)],
+            all=[AverageMeter() for _ in range(n_part)],
+            lq=[AverageMeter() for _ in range(n_part)],
+            dc=np.zeros(self.cfg.domain_num), names={})
+
+    def train_steps(self, n):
+        """Run n steps; returns the unpacked metrics of each, in order.
+        Each step's metrics are read after the next step is queued; the
+        last one is read at the end."""
+        out = []
+        for _ in range(n):
+            idx, dev_idx = self._next_batch()
+            metrics = step_fn(self.state, self.device_data, dev_idx, self.hp)
+            self.iter_num += 1
+            if self._pending is not None:
+                out.append(self._drain(self._pending))
+            self._pending = _Pending(self.iter_num, metrics, idx["ulb_idx"])
+        if self._pending is not None:
+            out.append(self._drain(self._pending))
+            self._pending = None
+        return out
+
+    def train(self):
+        cfg = self.cfg
+        parts = list(self.profile_.parts)
+        max_epoch = cfg.max_iterations // cfg.num_eval_iter
+        logging.info("%d iterations per epoch", cfg.num_eval_iter)
+        logging.info("%d epoch in all.", max_epoch)
+        for epoch_num in range(max_epoch):
+            if epoch_num:
+                self.new_epoch(epoch_num)
+            t0 = time.time()
+            self.train_steps(cfg.num_eval_iter)
+            dt = time.time() - t0
+            imgs = cfg.num_eval_iter * (cfg.label_bs + cfg.unlabel_bs)
+            logging.info("epoch %d: %.1f it/s, %.1f images/s",
+                         epoch_num + 1, cfg.num_eval_iter / dt, imgs / dt)
+            self._log_epoch(parts)
+            logging.info("evaluation and checkpoints are not ported yet; "
+                         "epoch %d ends without them", epoch_num + 1)
+        self.writer.close()
+
+    # ------------------------------------------------------------------
+    def _log_epoch(self, parts):
+        """Epoch-end curriculum summaries (train.py:888-907)."""
+        m = self._meters
+        for key, label in (("simple", "epoch simple dice avg"),
+                           ("other", "epoch other ulb dice avg"),
+                           ("all", "epoch all ulb dice avg"),
+                           ("lq", "epoch lq ulb dice avg")):
+            for i, pn in enumerate(parts):
+                logging.info("%s %s:%f", label, pn, m[key][i].avg)
+        logging.info("epoch simple hardness avg:%f", m["hardness"].avg)
+        logging.info("choice threshold:%f", float(self.state.choice_th))
+        logging.info(" ".join(f"{n} {c}" for n, c in m["names"].items()))
+        for i in range(self.cfg.domain_num):
+            logging.info("epoch simple domain %d cnt: %d", i + 1,
+                         int(m["dc"][i]))
+
+    def _drain(self, pending):
+        m = unpack_metrics(pending.fetch(), self.hp)
+        self._log_step(pending.it, m, np.asarray(pending.ulb_idx))
+        return m
+
+    def _log_step(self, it, m, ulb_idx):
+        """Per-step meters, scalars and log lines in the JAX trainer's
+        format (trainer.py:414-460)."""
+        cfg = self.cfg
+        mt = self._meters
+        parts = list(self.profile_.parts)
+        cur_n = int(m["cur_simple_num"])
+        if cur_n > 0:
+            for i in range(len(parts)):
+                mt["simple"][i].update(float(m["cur_simple_dice"][i]))
+            mt["hardness"].update(float(m["simple_hardness"]))
+            mt["dc"] += m["simple_dc_counts"]
+            for i, flag in enumerate(m["simple_flags"]):
+                if flag > 0:
+                    name = self.ulb_ds.names[int(ulb_idx[i])]
+                    mt["names"][name] = mt["names"].get(name, 0) + 1
+        if cur_n < cfg.unlabel_bs:
+            for i in range(len(parts)):
+                mt["other"][i].update(float(m["other_ulb_dice"][i]))
+        for i in range(len(parts)):
+            mt["all"][i].update(float(m["ulb_dice"][i]))
+            mt["lq"][i].update(float(m["lq_dice"][i]))
+
+        if it % cfg.log_interval == 0 or it % cfg.num_eval_iter == 0:
+            w = self.writer
+            for i, pn in enumerate(parts):
+                w.add_scalar(f"train/ulb_{pn}_dice", m["ulb_dice"][i], it)
+            w.add_scalar("train/mask", m["mask_ratio"], it)
+            w.add_scalar("train/lr", m["lr"], it)
+            w.add_scalar("train/loss", m["loss"], it)
+            w.add_scalar("train/sup_loss", m["sup_loss"], it)
+            w.add_scalar("train/unsup_loss_ul", m["unsup_loss_ul"], it)
+            w.add_scalar("train/unsup_loss_lu", m["unsup_loss_lu"], it)
+            w.add_scalar("train/unsup_loss_s", m["unsup_loss_s"], it)
+            w.add_scalar("train/consistency_weight",
+                         m["consistency_weight"], it)
+            w.add_scalar("train/bi_consistency_weight",
+                         float(m["consistency_weight"]) ** 2, it)
+        if it % cfg.num_eval_iter == 0:
+            logging.info(
+                "iteration %d : loss : %f, sup_loss : %f, unsup_loss_ul : %f,"
+                " unsup_loss_lu : %f, unsup_loss_s:%.3f,cons_w : %f,"
+                " mask_ratio : %f", it, m["loss"], m["sup_loss"],
+                m["unsup_loss_ul"], m["unsup_loss_lu"], m["unsup_loss_s"],
+                m["consistency_weight"], m["mask_ratio"])
+            for i, pn in enumerate(parts):
+                logging.info("cur simple dice avg %s:%f", pn,
+                             float(m["queue_dice"][i]))

@@ -1,0 +1,90 @@
+"""Segmentation losses (port of the main-path half of
+ust_run_tpu/utils/losses.py).
+
+Conventions (all NHWC):
+  * `logits`: (B, H, W, C) raw network outputs.
+  * multilabel (fundus) targets: (B, H, W, C) float {0,1}; masks share
+    that shape.
+  * multiclass targets: (B, H, W) int class maps; masks are (B, H, W, 1).
+
+Reduction quirks of the reference kept exactly:
+  * masked CE is `(ce * mask).mean()`: the mean is over ALL pixels
+    (train.py:826-836);
+  * `DiceLossWithMask` is one global soft dice over the whole volume in
+    multilabel mode, per-class global dice otherwise, and leaves class 0
+    unmasked (losses.py:207-213).
+"""
+
+import torch
+import torch.nn.functional as F
+
+_SMOOTH = 1e-10  # losses.py:218,228
+
+
+def _soft_dice(score, target, mask=None):
+    """1 - (2*sum(s*t)+eps) / (sum(t*t)+sum(s*s)+eps), over all axes."""
+    score = score.to(torch.float32)
+    target = target.to(torch.float32)
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        inter = torch.sum(score * target * mask)
+        t_sum = torch.sum(target * target * mask)
+        s_sum = torch.sum(score * score * mask)
+    else:
+        inter = torch.sum(score * target)
+        t_sum = torch.sum(target * target)
+        s_sum = torch.sum(score * score)
+    return 1.0 - (2.0 * inter + _SMOOTH) / (s_sum + t_sum + _SMOOTH)
+
+
+def dice_loss_multilabel(logits, target, mask=None):
+    """Sigmoid probabilities, one global dice (losses.py:236-249)."""
+    return _soft_dice(torch.sigmoid(logits.to(torch.float32)), target, mask)
+
+
+def dice_loss_multiclass(logits, target, n_classes, mask=None):
+    """Softmax probabilities, per-class global dice averaged over classes;
+    class 0 is never masked (losses.py:207-213). target (B,H,W) int,
+    mask (B,H,W,1) or None."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    loss = 0.0
+    for c in range(n_classes):
+        tgt_c = (target == c).to(torch.float32)
+        mask_c = None
+        if mask is not None and c > 0:
+            mask_c = (mask[..., 0] == 1).to(torch.float32)
+        loss = loss + _soft_dice(probs[..., c], tgt_c, mask_c)
+    return loss / n_classes
+
+
+def bce_with_logits(logits, target):
+    """Elementwise BCE-with-logits, reduction='none' (train.py:516):
+    max(x,0) - x*t + log(1+exp(-|x|))."""
+    x = logits.to(torch.float32)
+    t = target.to(torch.float32)
+    return torch.clamp(x, min=0.0) - x * t + torch.log1p(torch.exp(-x.abs()))
+
+
+def softmax_ce(logits, target):
+    """Elementwise softmax cross-entropy, reduction='none' (train.py:519).
+    A one-hot contraction, as in the JAX package (losses.py:90-105): an
+    out-of-range target gives 0. logits (B,H,W,C), target (B,H,W) int."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (target[..., None].to(torch.int64) == classes).to(torch.float32)
+    return -torch.sum(logp * onehot, dim=-1)
+
+
+def ce_plus_dice(logits, target, *, multilabel, n_classes, mask=None):
+    """`ce.mean() + dice(...)` (train.py:816-838); masked CE is
+    `(ce * mask).mean()` over all elements."""
+    if multilabel:
+        ce = bce_with_logits(logits, target)
+        if mask is not None:
+            ce = ce * mask.to(torch.float32)
+        return torch.mean(ce) + dice_loss_multilabel(logits, target, mask)
+    ce = softmax_ce(logits, target)
+    if mask is not None:
+        ce = ce * mask[..., 0].to(torch.float32)
+    return torch.mean(ce) + dice_loss_multiclass(logits, target, n_classes,
+                                                 mask)
