@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (ust_run_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile FILE]
 
 Phases, one line each; any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
@@ -16,7 +16,15 @@ Phases, one line each; any failure exits non-zero:
      input;
   5. main path: the port's trainer on a synthetic fundus corpus at full
      width (UNet 64->1024, 3x256^2, batch 4+4): 3 warm-up and 10 timed
-     steps, every loss finite, the RNG kernel launched once per step.
+     steps, every loss finite, the RNG kernel launched once per step, and
+     no call in the timed steps that makes the host wait on the card
+     (`torch.cuda.set_sync_debug_mode("error")`) other than the trainer's
+     one-step-behind metric fetch;
+  6. profile (only with --profile FILE): 5 more steps of the same trainer
+     under torch.profiler: wall and device-kernel ms per step, the
+     device's busy share, kernel launches per step, the host's time
+     blocked in synchronising CUDA calls, the top operators by device
+     time and the convolutions' FLOPs; written to FILE as JSON.
 Then a JSON line with the kernels' numbers, the card line again, and
 `{"ok": true, "device": {...}}` as the last line.
 
@@ -25,6 +33,7 @@ checkout (`_smoke/`, `ust_run_tpu_torch/_build/`); `_smoke/` is removed
 at the end.
 """
 
+import argparse
 import json
 import math
 import os
@@ -39,7 +48,9 @@ H100_NONTENSOR_OPS_PER_S = 67e12  # f32 outside the tensor cores (proxy for
 #                                   32-bit integer work)
 PHILOX_OPS_PER_QUAD = 112        # 10 rounds x (2 mulhi + 2 mullo + 4 xor +
 #                                  2 key adds) + 4 x (shift, convert, scale)
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 10, 5
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
 
 
 def fail(msg):
@@ -159,7 +170,7 @@ def phase_reference(card):
           f"|d|/max|g| {grad_err:.2e} | {card}", flush=True)
 
 
-def phase_main_path(card, work):
+def phase_main_path(card, work, profile_out=None):
     import numpy as np
     import torch
     from ust_run_tpu_torch.config import build_parser, config_from_args
@@ -202,7 +213,13 @@ def phase_main_path(card, work):
     metrics = trainer.train_steps(WARMUP_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics += trainer.train_steps(TIMED_STEPS)
+    # any host-device synchronisation inside the step raises here; the
+    # trainer's metric fetch waits on a recorded event, which is not one
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics += trainer.train_steps(TIMED_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = rng.launches
@@ -219,18 +236,119 @@ def phase_main_path(card, work):
     if launches != steps:
         fail(f"uniform_rng launched {launches} times in {steps} steps")
     imgs = TIMED_STEPS * (cfg.label_bs + cfg.unlabel_bs)
+    step_ms = dt / TIMED_STEPS * 1e3
     last = metrics[-1]
     print(f"[main path] fundus UNet 64->1024, 3x256^2, batch 4+4, bf16 "
           f"autocast: {WARMUP_STEPS}+{TIMED_STEPS} steps, "
-          f"{imgs / dt:.2f} img/s, {dt / TIMED_STEPS * 1e3:.1f} ms/step, "
-          f"peak {peak_gib:.2f} GiB; uniform_rng launches {launches}; "
-          f"last loss {float(last['loss']):.4f} sup "
-          f"{float(last['sup_loss']):.4f} | {card}", flush=True)
+          f"{imgs / dt:.2f} img/s, {step_ms:.1f} ms/step, "
+          f"peak {peak_gib:.2f} GiB; uniform_rng launches {launches}; no "
+          f"host-device sync in the timed steps; last loss "
+          f"{float(last['loss']):.4f} sup {float(last['sup_loss']):.4f} | "
+          f"{card}", flush=True)
+    if profile_out:
+        phase_profile(card, trainer, step_ms, profile_out)
     return {"uniform_rng": launches}
+
+
+def unet_forward_gflop(model, size, channels, device):
+    """Convolution FLOPs (2 x multiply-adds) of one image's forward,
+    counted with hooks on a batch-1 forward in eval mode."""
+    import torch
+    macs = []
+
+    def hook(mod, inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            macs.append(inp[0].numel() * mod.out_channels * k)
+        else:
+            macs.append(out.numel() * mod.in_channels * k)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros((1, size, size, channels), device=device))
+    model.train()
+    for h in hooks:
+        h.remove()
+    return 2 * sum(macs) / 1e9
+
+
+def phase_profile(card, trainer, step_ms, out_path):
+    """PROFILED_STEPS more steps of the main path's trainer under
+    torch.profiler (CPU and CUDA activities)."""
+    import torch
+    hp = trainer.hp
+    gflop = unet_forward_gflop(trainer.state.student, hp.patch, hp.channels,
+                               trainer.device)
+    # teacher: 3 groups of unlabel_bs forwards; student: 5 groups of 4 plus
+    # the LQ image, forward and backward (~3 forwards)
+    n_fwd = 3 * hp.unlabel_bs + 3 * (4 * hp.unlabel_bs + hp.label_bs + 1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.train_steps(PROFILED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    n = PROFILED_STEPS
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    kernel_us = sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == cuda)
+    n_kernels = sum(1 for e in events if e.device_type == cuda)
+    host = [e for e in events if e.device_type != cuda]
+    syncs = {name: [e.time_range.elapsed_us() / 1e3 for e in host
+                    if e.name == name] for name in SYNC_CALLS}
+    launch_us = sum(e.time_range.elapsed_us() for e in host
+                    if "LaunchKernel" in e.name)
+
+    def device_us(evt):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                return getattr(evt, name)
+        return 0.0
+
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type != cuda and device_us(e) > 0),
+                 key=device_us, reverse=True)
+    summary = {
+        "card": card, "steps": n,
+        "unprofiled_ms_per_step": step_ms,
+        "wall_ms_per_step": wall * 1e3 / n,
+        "device_kernel_ms_per_step": kernel_us / 1e3 / n,
+        "device_busy_share": kernel_us / 1e6 / wall,
+        "device_busy_share_unprofiled": kernel_us / 1e3 / n / step_ms,
+        "kernel_launches_per_step": n_kernels / n,
+        "launch_api_ms_per_step": launch_us / 1e3 / n,
+        "sync_call_ms": syncs,
+        "conv_gflop_per_image_forward": gflop,
+        "conv_tflop_per_step": gflop * n_fwd / 1e3,
+        "top_ops": [{"op": e.key, "device_ms_per_step": device_us(e) / 1e3 / n,
+                     "calls_per_step": e.count / n} for e in ops[:25]],
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(summary, f, indent=1)
+    print(f"[profile] {n} steps: wall {summary['wall_ms_per_step']:.1f} "
+          f"ms/step under the profiler ({step_ms:.1f} without), device "
+          f"kernels {summary['device_kernel_ms_per_step']:.1f} ms/step, busy "
+          f"{summary['device_busy_share']:.3f} "
+          f"({summary['device_busy_share_unprofiled']:.3f} of the unprofiled "
+          f"step), {summary['kernel_launches_per_step']:.0f} kernels/step, "
+          f"sync calls " + ", ".join(f"{k} {len(v)}" for k, v in syncs.items())
+          + f"; convs {gflop:.2f} GFLOP per image forward; -> {out_path} | "
+          f"{card}", flush=True)
 
 
 def main():
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="FILE", default=None,
+                    help="also profile the main path; write JSON to FILE")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA GPU")
@@ -253,7 +371,7 @@ def main():
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches = phase_main_path(card, work)
+        launches = phase_main_path(card, work, args.profile)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for k in kernels:

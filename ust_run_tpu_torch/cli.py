@@ -14,13 +14,13 @@ import sys
 from ust_run_tpu_torch.config import config_from_args
 
 
-def bootstrap(args, script_path, require_fresh=True):
+def bootstrap(args, script_path):
     cfg = config_from_args(args).resolve()
     snapshot_path = os.path.join(cfg.model_root, cfg.dataset,
                                  cfg.save_name) + "/"
     if not os.path.exists(snapshot_path):
         os.makedirs(snapshot_path)
-    elif require_fresh and not cfg.overwrite and not cfg.load:
+    elif not cfg.overwrite and not cfg.load:
         raise Exception(f"file {snapshot_path} is exist!")
     try:
         shutil.copy(script_path, os.path.join(

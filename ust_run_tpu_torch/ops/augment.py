@@ -28,7 +28,6 @@ from ust_run_tpu_torch.ops.resample import (bilinear_gather, gaussian_kernel,
 from ust_run_tpu_torch.ops.rng import uniform_batch
 
 
-@functools.lru_cache(maxsize=None)
 def _gauss_band_matrix(size, sigma):
     """Dense (size,size) zero-padded 1-D gaussian filter matrix
     (augment.py:43-61; scipy truncate=4.0, mode='constant')."""
@@ -44,12 +43,19 @@ def _gauss_band_matrix(size, sigma):
     return m.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _smoothing_matrix(size, device):
+    """The sigma = 0.08*S band matrix on `device`, copied there once per
+    (size, device): a host-to-device copy each step would wait on the
+    device."""
+    return torch.as_tensor(_gauss_band_matrix(size, 0.08 * size),
+                           device=device)
+
+
 def smooth_fields(raw):
     """(F,S,S) float32 -> gaussian_filter(sigma=0.08*S, mode='constant') of
     each field, as m @ field @ m.T in float32 (augment.py:203-205)."""
-    size = raw.shape[-1]
-    m = torch.as_tensor(_gauss_band_matrix(size, 0.08 * size),
-                        device=raw.device)
+    m = _smoothing_matrix(raw.shape[-1], raw.device)
     return torch.matmul(torch.matmul(m, raw), m.T)
 
 
@@ -79,21 +85,17 @@ def weak_augment_apply(imgs, masks, dx, dy, draws, *, size, fillcolor):
         return v[:, None, None]
 
     do_scale = col(draws["do_scale"])
-    w = torch.where(do_scale, torch.floor(col(draws["scale_w"]) * sf),
-                    torch.tensor(sf, device=dev))
-    h = torch.where(do_scale, torch.floor(col(draws["scale_h"]) * sf),
-                    torch.tensor(sf, device=dev))
+    w = torch.where(do_scale, torch.floor(col(draws["scale_w"]) * sf), sf)
+    h = torch.where(do_scale, torch.floor(col(draws["scale_h"]) * sf), sf)
     # random.randint(0, w - S) is INCLUSIVE of the upper bound
     x1 = torch.floor(col(draws["u_x"]) * (w - sf + 1.0))
     y1 = torch.floor(col(draws["u_y"]) * (h - sf + 1.0))
     theta = torch.where(col(draws["do_rot"]),
-                        col(draws["deg"]) * (math.pi / 180.0),
-                        torch.tensor(0.0, device=dev))
+                        col(draws["deg"]) * (math.pi / 180.0), 0.0)
     do_flip = col(draws["do_flip"])
     do_el = col(draws["do_el"])
-    zero = torch.zeros((), device=dev)
-    dx = torch.where(do_el, dx, zero)
-    dy = torch.where(do_el, dy, zero)
+    dx = torch.where(do_el, dx, 0.0)
+    dy = torch.where(do_el, dy, 0.0)
 
     ii = torch.arange(s, dtype=torch.float32, device=dev)[None, :, None]
     jj = torch.arange(s, dtype=torch.float32, device=dev)[None, None, :]
@@ -122,11 +124,10 @@ def weak_augment_apply(imgs, masks, dx, dy, draws, *, size, fillcolor):
     sm_r, sm_c, rot_oob_m = chain(qm_r, qm_c)
 
     img_v = bilinear_gather(imgs, s_r, s_c)
-    img_out = torch.where((el_oob | rot_oob)[..., None], zero, img_v)
+    img_out = torch.where((el_oob | rot_oob)[..., None], 0.0, img_v)
     img_out = torch.round(torch.clamp(img_out, 0.0, 255.0))
     mask_v = nearest_gather(masks, sm_r, sm_c).to(torch.float32)
-    mask_out = torch.where(rot_oob_m[..., None],
-                           torch.tensor(float(fillcolor), device=dev), mask_v)
+    mask_out = torch.where(rot_oob_m[..., None], float(fillcolor), mask_v)
     return img_out, mask_out
 
 

@@ -50,9 +50,11 @@ def nearest_gather(imgs, rows, cols):
 
 
 @functools.lru_cache(maxsize=None)
-def _reflect_tap_matrices(size, ktaps):
+def _reflect_tap_matrices(size, ktaps, device):
     """(K, size, size) 0/1 tap matrices of a reflect-padded 1-D conv: tap
-    t of output i reads source reflect(i + t - r) (resample.py:94-105)."""
+    t of output i reads source reflect(i + t - r) (resample.py:94-105).
+    Copied to `device` once per (size, ktaps, device): a host-to-device
+    copy each step would wait on the device."""
     r = ktaps // 2
     m = np.zeros((ktaps, size, size), np.float32)
     for t in range(ktaps):
@@ -60,7 +62,7 @@ def _reflect_tap_matrices(size, ktaps):
         j = np.where(j < 0, -j, j)
         j = np.where(j >= size, 2 * size - 2 - j, j)
         m[t, np.arange(size), j] = 1.0
-    return m
+    return torch.as_tensor(m, device=device)
 
 
 def separable_gaussian_blur(imgs, kernels):
@@ -68,8 +70,7 @@ def separable_gaussian_blur(imgs, kernels):
     imgs (B,H,W,C) float32, kernels (B,K) normalised 1-D kernels."""
     b, h, w, c = imgs.shape
     assert h == w, "square images expected"
-    taps = torch.as_tensor(_reflect_tap_matrices(h, kernels.shape[1]),
-                           device=imgs.device)
+    taps = _reflect_tap_matrices(h, kernels.shape[1], imgs.device)
     m = torch.einsum("bt,tij->bij", kernels, taps)
     rows = torch.matmul(m, imgs.reshape(b, h, w * c)).reshape(b, h, w, c)
     return torch.einsum("bjw,biwc->bijc", m, rows)

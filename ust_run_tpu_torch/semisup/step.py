@@ -404,7 +404,7 @@ def update_queue(queue, choice_th, hardness, ulb_x_w, pseudo_label,
     # the new buffer; stagnant non-empty -> x increase, capped at 0.1;
     # empty and nothing new -> unchanged.
     buf_max = torch.max(torch.where(cand["valid"], cand["hardness"],
-                                    torch.tensor(-float("inf"), device=dev)))
+                                    -float("inf")))
     th_refresh = torch.minimum(choice_th, buf_max)
     th_increase = torch.clamp(hp.increase * choice_th, max=0.1)
     new_th = torch.where(do_refresh, th_refresh,
