@@ -3,14 +3,29 @@
 
     python3 chip_smoke.py [--profile FILE]
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each (or a few); any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles every CUDA kernel of the main path from
-     ust_run_tpu_torch/csrc/ (nvcc, sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the card
-     (the uniform-field RNG must be bit-equal at the main path's shape and
-     at a ragged one, and pass the statistical bar), with its time, its
-     bound and the time of the nearest PyTorch library call;
+  2. build: compiles every kernel library from the checkout at once
+     (nvcc for sm_90a: csrc/uniform_rng.cu and csrc/fused_conv.cu; g++
+     for the boundary-metric engine native/boundary.cc);
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     TF32 off, with its time, its bound and the time of the nearest
+     PyTorch library call or chain:
+     - the uniform-field RNG bit-equal at the main path's shape and at a
+       ragged one, and the statistical bar;
+     - bn_relu_conv3x3 at the JAX test shapes in f32 and bf16, the
+       all-ones edge case (exact 4C/6C/9C counts) and the four microbench
+       shapes of tools/bench_fused_conv.py in bf16 (f32 `out` to 1e-4:
+       accumulation order over K up to 576; bf16 `out` within one bf16
+       ulp of the plain value plus 1e-5 of its largest magnitude, where
+       near-cancelling sums let the f32 order move the rounding; moments
+       to rtol 1e-5, atol 1e-5 of their largest magnitude, a bar that
+       must be narrower than what one tile dropped from the moments'
+       tile reduce would lose at every microbench shape); then its
+       path, the microbench at those shapes: kernel, plain version and
+       `reference_chain` (BN+ReLU pass, cuDNN bf16 convolution, moment
+       passes: the chain the kernel replaces), with bound, TFLOP/s and
+       GB/s;
   4. reference: the port's UNet train forward and gradients on the card
      against the same module on the CPU (float32, TF32 off) at a small
      input;
@@ -24,7 +39,17 @@ Phases, one line each; any failure exits non-zero:
      under torch.profiler: wall and device-kernel ms per step, the
      device's busy share, kernel launches per step, the host's time
      blocked in synchronising CUDA calls, the top operators by device
-     time and the convolutions' FLOPs; written to FILE as JSON.
+     time and the convolutions' FLOPs; written to FILE as JSON;
+  7. evaluation, on the same trainer: after one untimed warm-up pass, the
+     EMA and student models timed over the synthetic fundus test split
+     (32 images) at full width, every per-domain dice in [0, 1] and dc,
+     jc, hd95, asd finite; a checkpoint
+     written to `_smoke/`, a fresh trainer built with --load from it
+     (state_dicts, SGD state and queue equal to the saved ones, its
+     evaluation equal to the first within 1e-6), and
+     `python -m ust_run_tpu_torch.test` on the saved best model;
+  8. BUSI: the softmax profile at full width (1x256^2, batch 4+4): 3
+     steps with every loss finite, then one evaluation of both models.
 Then a JSON line with the kernels' numbers, the card line again, and
 `{"ok": true, "device": {...}}` as the last line.
 
@@ -34,6 +59,8 @@ at the end.
 """
 
 import argparse
+import functools
+import gc
 import json
 import math
 import os
@@ -41,6 +68,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
@@ -48,7 +76,20 @@ H100_NONTENSOR_OPS_PER_S = 67e12  # f32 outside the tensor cores (proxy for
 #                                   32-bit integer work)
 PHILOX_OPS_PER_QUAD = 112        # 10 rounds x (2 mulhi + 2 mullo + 4 xor +
 #                                  2 key adds) + 4 x (shift, convert, scale)
-WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 10, 5
+H100_BF16_FLOPS = 989e12          # dense bf16 tensor cores, data sheet
+MOMENT_RTOL = 1e-5                # bn_relu_conv3x3 moments: rtol, and atol
+#                                   as a share of the largest magnitude
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS, BUSI_STEPS = 3, 10, 5, 3
+N_TEST = 8                        # synthetic test images per domain
+# (label, B, H, W, C, Co): the fused step's conv shapes timed by
+# tools/bench_fused_conv.py:34-39 (21 = the student megabatch, 12 = the
+# teacher's three groups of 4)
+FUSED_SHAPES = [("L1 student", 21, 256, 256, 64, 64),
+                ("L1 teacher", 12, 256, 256, 64, 64),
+                ("L2 student", 21, 128, 128, 128, 128),
+                ("L3 student", 21, 64, 64, 256, 256)]
+FUSED_TEST_SHAPES = [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8),
+                     (1, 16, 16, 64, 16)]        # tests/test_fused_conv.py
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 
@@ -137,6 +178,175 @@ def phase_kernels(card):
     return [entry]
 
 
+def fused_inputs(b, h, w, c, co, dtype, seed, w_scale=0.1):
+    """Inputs of bn_relu_conv3x3 drawn on the CPU from a seed, on the
+    card: y N(0,1) in `dtype`, inv U(0.5,1.5), shift 0.3*N, w w_scale*N
+    (the draws of tests/test_fused_conv.py and the microbench)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn((b, h, w, c), generator=g).to(dtype)
+    inv = torch.rand((b, c), generator=g) + 0.5
+    shift = torch.randn((b, c), generator=g) * 0.3
+    wk = torch.randn((3, 3, c, co), generator=g) * w_scale
+    return tuple(t.to("cuda") for t in (y, inv, shift, wk))
+
+
+def check_fused(args, label):
+    """bn_relu_conv3x3 against its plain version on the same inputs, with
+    the tolerances of the module docstring. Returns a dict: max |out -
+    plain| (`err`), the outputs more than one bf16 ulp off (`past_ulp`, 0
+    in f32) and the largest such |d| over max |plain| (`worst`), the
+    moments' largest |d| over their largest magnitude (`m_err`); where the
+    kernel's 8x16 tiles divide the image, what the moments would lose if
+    the tile reduce dropped one tile, for the tile that loses least: its
+    largest loss over the moment's largest magnitude (`drop`) and over the
+    moment bar (`drop_bar`, which must exceed 1)."""
+    import torch
+    from ust_run_tpu_torch.ops import fused_conv as fc
+    out, m1, m2 = fc.bn_relu_conv3x3(*args)
+    torch.cuda.synchronize()
+    p_out, p1, p2 = fc.bn_relu_conv3x3_plain(*args)
+    o, p = out.float(), p_out.float()
+    d = (o - p).abs()
+    top = p.abs().max()
+    if out.dtype == torch.float32:
+        bad = d > 1e-4 + 1e-4 * p.abs()
+    else:
+        bad = d > torch.finfo(torch.bfloat16).eps * p.abs() + 1e-5 * top
+    if bool(bad.any()):
+        fail(f"bn_relu_conv3x3 {label}: {int(bad.sum())} of {d.numel()} "
+             f"outputs off the plain version (max |d| {d.max().item()}, "
+             f"max |plain| {top.item()})")
+    b, h, w, co = p.shape
+    tiled = h % 8 == 0 and w % 16 == 0
+    res = dict(err=d.max().item(), past_ulp=0, worst=0.0, m_err=0.0,
+               drop=None, drop_bar=None)
+    drop, drop_bar = [], []
+    for name, m, pm, f in (("m1", m1, p1, lambda x: x),
+                           ("m2", m2, p2, torch.square)):
+        scale = pm.abs().max().item()
+        bar = MOMENT_RTOL * pm.abs() + MOMENT_RTOL * scale
+        dm = (m - pm).abs()
+        if bool((dm > bar).any()):
+            fail(f"bn_relu_conv3x3 {label}: {name} max |d| "
+                 f"{dm.max().item()}, {dm.max().item() / scale:.2e} of its "
+                 f"largest magnitude")
+        res["m_err"] = max(res["m_err"], dm.max().item() / scale)
+        if tiled:
+            # each tile's share of the moment, per (sample, tile, channel)
+            lost = f(p).reshape(b, h // 8, 8, w // 16, 16, co) \
+                .sum(dim=(2, 4)).abs() / (h * w)
+            drop.append(lost.amax(dim=(0, 3)) / scale)
+            drop_bar.append((lost / bar[:, None, None, :]).amax(dim=(0, 3)))
+    if tiled:
+        # a dropped tile loses its share of both moments
+        res["drop"] = torch.maximum(*drop).min().item()
+        res["drop_bar"] = torch.maximum(*drop_bar).min().item()
+        if res["drop_bar"] <= 1.0:
+            fail(f"bn_relu_conv3x3 {label}: the moment bar cannot see a "
+                 f"tile dropped from the reduce ({res['drop_bar']:.3g} of "
+                 f"the bar)")
+    if out.dtype == torch.bfloat16:
+        past_ulp = d > torch.finfo(torch.bfloat16).eps * p.abs()
+        res["past_ulp"] = int(past_ulp.sum())
+        res["worst"] = d[past_ulp].max().item() / top.item() \
+            if past_ulp.any() else 0.0
+    return res
+
+
+def phase_fused_conv(card):
+    """bn_relu_conv3x3: correctness against the plain version, then its
+    path (the microbench of tools/bench_fused_conv.py) with counted
+    launches."""
+    import torch
+    from ust_run_tpu_torch.ops import fused_conv as fc
+
+    m_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FUSED_TEST_SHAPES + [(2, 19, 37, 3, 70)]:
+            res = check_fused(fused_inputs(*shape, dtype, seed=0),
+                              f"{tuple(shape)} {dtype}")
+            m_err = max(m_err, res["m_err"])
+        ones = (torch.ones((1, 16, 16, 8), dtype=dtype, device="cuda"),
+                torch.ones((1, 8), device="cuda"),
+                torch.zeros((1, 8), device="cuda"),
+                torch.ones((3, 3, 8, 8), device="cuda"))
+        out = fc.bn_relu_conv3x3(*ones)[0].float()
+        if (out[0, 0, 0, 0].item(), out[0, 0, 5, 0].item(),
+                out[0, 5, 5, 0].item()) != (32.0, 48.0, 72.0) \
+                or not torch.equal(out, fc.bn_relu_conv3x3_plain(*ones)[0]
+                                   .float()):
+            fail(f"bn_relu_conv3x3 edge case ({dtype}): corner "
+                 f"{out[0, 0, 0, 0].item()} edge {out[0, 0, 5, 0].item()} "
+                 f"interior {out[0, 5, 5, 0].item()}, want 32/48/72")
+    print(f"[kernels] bn_relu_conv3x3 within tolerance of its plain version "
+          f"at {len(FUSED_TEST_SHAPES) + 1} shapes x f32/bf16 (moments "
+          f"within {m_err:.1e} of their largest magnitude) and exact on "
+          f"the all-ones edge case (4C/6C/9C) | {card}", flush=True)
+
+    inputs = [(label, fused_inputs(b, h, w, c, co, torch.bfloat16, seed=i,
+                                   w_scale=0.05))
+              for i, (label, b, h, w, c, co) in enumerate(FUSED_SHAPES)]
+    checks = [check_fused(args, label) for label, args in inputs]
+    max_err = max(c["err"] for c in checks)
+    n_out = [a[0].numel() // a[0].shape[-1] * a[3].shape[-1]
+             for _, a in inputs]
+    print("[kernels] bn_relu_conv3x3 bf16 at the microbench shapes: max "
+          "|out - plain| " + ", ".join(f"{c['err']:.4g}" for c in checks)
+          + "; outputs beyond one bf16 ulp " + ", ".join(
+              f"{c['past_ulp']} of {n}" for c, n in zip(checks, n_out))
+          + ", the worst at " + ", ".join(f"{c['worst']:.2e}"
+                                          for c in checks)
+          + " of max |plain| (near-cancelling sums); moments within "
+          + ", ".join(f"{c['m_err']:.1e}" for c in checks)
+          + " of their largest magnitude, where one tile dropped from the "
+          "reduce would read at least "
+          + ", ".join(f"{c['drop']:.1e} ({c['drop_bar']:.0f}x the bar)"
+                      for c in checks) + f" | {card}", flush=True)
+    fc.launches = 0
+    rows = []
+    for label, args in inputs:
+        y, inv, shift, wk = args
+        b, h, w, c = y.shape
+        co = wk.shape[-1]
+        ms = cuda_ms(lambda: fc.bn_relu_conv3x3(*args), 20)
+        plain_ms = cuda_ms(lambda: fc.bn_relu_conv3x3_plain(*args), 3)
+        chain_ms = cuda_ms(lambda: fc.reference_chain(*args), 20)
+        nbytes = (y.numel() + b * h * w * co) * 2 \
+            + (wk.numel() + inv.numel() + shift.numel() + 2 * b * co) * 4
+        flops = 2 * b * h * w * 9 * c * co
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ops_ms = flops / H100_BF16_FLOPS * 1e3
+        rows.append(dict(shape=label, B=b, H=h, W=w, C=c, Co=co, ms=ms,
+                         plain_ms=plain_ms, library_ms=chain_ms,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations",
+                         tflops=flops / ms / 1e9, gbps=nbytes / ms / 1e6))
+        r = rows[-1]
+        print(f"[kernels] bn_relu_conv3x3 {label} {b}x{h}x{w}x{c}->{co} "
+              f"bf16: {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s, "
+              f"{r['gbps']:.0f} GB/s), bound {r['bound_ms'] * 1e3:.1f} us "
+              f"({r['bound_by']}, {r['bound_ms'] / ms:.1%} of it), plain "
+              f"{plain_ms:.3f} ms, reference_chain {chain_ms:.3f} ms | "
+              f"{card}", flush=True)
+    launches = fc.launches
+    if launches == 0:
+        fail("bn_relu_conv3x3 was not launched in its microbench")
+    top = rows[0]
+    return dict(name="bn_relu_conv3x3", route="cuda",
+                source="ust_run_tpu_torch/csrc/fused_conv.cu",
+                replaces="ust_run_tpu/ops/fused_conv.py:53",
+                launches=launches, max_abs_err=max_err, ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=top["library_ms"],
+                library="reference_chain: BN+ReLU pass, cuDNN bf16 conv, "
+                        "moment passes",
+                path="microbench at the shapes of tools/bench_fused_conv.py"
+                     " (the JAX model never calls the kernel)",
+                shapes=rows)
+
+
 def phase_reference(card):
     """The UNet's train forward + backward on the card against the CPU."""
     import torch
@@ -176,10 +386,10 @@ def phase_main_path(card, work, profile_out=None):
     from ust_run_tpu_torch.config import build_parser, config_from_args
     from ust_run_tpu_torch.data.synthetic import generate
     from ust_run_tpu_torch.engine.trainer import Trainer
-    from ust_run_tpu_torch.ops import augment, rng
+    from ust_run_tpu_torch.ops import augment, fused_conv, rng
 
     root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
-                    n_test=1, size=256, seed=0)
+                    n_test=N_TEST, size=256, seed=0)
     # the bar of tests/test_ops.py:221 through the kernel: no augmentation
     # branch may blank out a bright sample
     img = torch.full((8, 256, 256, 3), 200, dtype=torch.uint8, device="cuda")
@@ -193,12 +403,11 @@ def phase_main_path(card, work, profile_out=None):
     if black >= 0.5:
         fail(f"weak augmentation blanked a sample ({black:.3f} black)")
 
-    args = build_parser().parse_args([
-        "--dataset", "fundus", "--data_root", root, "--lb_domain", "1",
-        "--lb_num", "4", "--save_name", "smoke", "--overwrite",
-        "--model_root", os.path.join(work, "model"), "--device", "cuda"])
-    cfg = config_from_args(args).resolve()
-    trainer = Trainer(cfg, os.path.join(work, "model"))
+    argv = ["--dataset", "fundus", "--data_root", root, "--lb_domain", "1",
+            "--lb_num", "4", "--save_name", "smoke", "--overwrite",
+            "--model_root", os.path.join(work, "model"), "--device", "cuda"]
+    cfg = config_from_args(build_parser().parse_args(argv)).resolve()
+    trainer = Trainer(cfg, snapshot_dir(cfg))
     p = cfg.profile()
     width = trainer.state.student.inc.double_conv[0].out_channels
     deepest = trainer.state.student.down4.maxpool_conv[1] \
@@ -207,7 +416,7 @@ def phase_main_path(card, work, profile_out=None):
             width, deepest) != (256, 3, 4, 4, 64, 1024):
         fail("main path is not the full-width fundus configuration")
 
-    rng.launches = 0
+    rng.launches = fused_conv.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics = trainer.train_steps(WARMUP_STEPS)
@@ -222,7 +431,8 @@ def phase_main_path(card, work, profile_out=None):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = rng.launches
+    launches = {"uniform_rng": rng.launches,
+                "bn_relu_conv3x3": fused_conv.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     steps = WARMUP_STEPS + TIMED_STEPS
@@ -233,21 +443,187 @@ def phase_main_path(card, work, profile_out=None):
                   "unsup_loss_s"):
             if not np.isfinite(float(m[k])):
                 fail(f"step {i + 1}: {k} = {m[k]}")
-    if launches != steps:
-        fail(f"uniform_rng launched {launches} times in {steps} steps")
+    if launches["uniform_rng"] != steps:
+        fail(f"uniform_rng launched {launches['uniform_rng']} times in "
+             f"{steps} steps")
     imgs = TIMED_STEPS * (cfg.label_bs + cfg.unlabel_bs)
     step_ms = dt / TIMED_STEPS * 1e3
     last = metrics[-1]
     print(f"[main path] fundus UNet 64->1024, 3x256^2, batch 4+4, bf16 "
           f"autocast: {WARMUP_STEPS}+{TIMED_STEPS} steps, "
           f"{imgs / dt:.2f} img/s, {step_ms:.1f} ms/step, "
-          f"peak {peak_gib:.2f} GiB; uniform_rng launches {launches}; no "
+          f"peak {peak_gib:.2f} GiB; uniform_rng launches "
+          f"{launches['uniform_rng']}, bn_relu_conv3x3 "
+          f"{launches['bn_relu_conv3x3']} (not on the model's path); no "
           f"host-device sync in the timed steps; last loss "
           f"{float(last['loss']):.4f} sup {float(last['sup_loss']):.4f} | "
           f"{card}", flush=True)
     if profile_out:
         phase_profile(card, trainer, step_ms, profile_out)
-    return {"uniform_rng": launches}
+    return launches, trainer, argv
+
+
+def snapshot_dir(cfg):
+    """<model_root>/<dataset>/<save_name>, as the CLI lays it out."""
+    path = os.path.join(cfg.model_root, cfg.dataset, cfg.save_name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def check_eval(res, label, n_part):
+    """Finite metrics, dice in [0, 1], for every domain and overall."""
+    import numpy as np
+    for where, r in [("overall", res)] + [(f"domain{i + 1}", d) for i, d in
+                                          enumerate(res["domains"])]:
+        m = np.asarray(r["metrics"])
+        if m.shape != (5, n_part) or not np.isfinite(m).all() \
+                or not np.isfinite(r["loss"]) \
+                or not ((m[0] >= 0) & (m[0] <= 1)).all():
+            fail(f"{label} evaluation, {where}: loss {r['loss']}, "
+                 f"dice/dc/jc/hd95/asd {m.tolist()}")
+
+
+def phase_eval(card, trainer, argv, work):
+    """Evaluation, checkpoint, --load round trip and the standalone
+    evaluator on the main path's trainer."""
+    import numpy as np
+    import torch
+    from ust_run_tpu_torch.config import build_parser, config_from_args
+    from ust_run_tpu_torch.engine.trainer import Trainer
+
+    n_part = trainer.profile_.n_part
+    n_img = sum(len(ld.ds) for ld in trainer.evaluator.loaders)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # untimed: the first pass meets the eval shapes' convolutions cold
+    trainer.evaluator.evaluate(trainer.state.teacher, 1)
+    res, secs = {}, {}
+    for name, model in (("ema", trainer.state.teacher),
+                        ("stu", trainer.state.student)):
+        t0 = time.perf_counter()
+        res[name] = trainer.evaluator.evaluate(model, 1, ema=name == "ema")
+        secs[name] = time.perf_counter() - t0
+        check_eval(res[name], f"fundus {name}", n_part)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ema, stu = res["ema"]["metrics"], res["stu"]["metrics"]
+    print(f"[eval] fundus EMA and student over {n_img} test images "
+          f"({len(trainer.evaluator.loaders)} domains, batch "
+          f"{trainer.cfg.eval_batch}): {n_img / secs['ema']:.1f} and "
+          f"{n_img / secs['stu']:.1f} img/s with boundary metrics, peak "
+          f"{peak_gib:.2f} GiB; EMA dice {ema[0].round(4).tolist()} hd95 "
+          f"{ema[3].round(2).tolist()}, student dice "
+          f"{stu[0].round(4).tolist()} asd {stu[4].round(2).tolist()}; all "
+          f"finite | {card}", flush=True)
+
+    trainer.evaluate_and_checkpoint(0, trainer.iter_num)
+    trainer.wait_for_checkpoint()
+    snap = trainer.snapshot_path
+    for f in ("checkpoint.pth", "unet_avg_dice_best_model.pth"):
+        if not os.path.exists(os.path.join(snap, f)):
+            fail(f"no {f} in {snap}")
+    cfg = config_from_args(build_parser().parse_args(argv + ["--load"]))
+    resumed = Trainer(cfg.resolve(), snap)
+    a, b = trainer.state, resumed.state
+    pairs = [(f"student.{k}", v, b.student.state_dict()[k])
+             for k, v in a.student.state_dict().items()]
+    pairs += [(f"teacher.{k}", v, b.teacher.state_dict()[k])
+              for k, v in a.teacher.state_dict().items()]
+    pairs += [(f"queue.{k}", v, b.queue.fields()[k])
+              for k, v in a.queue.fields().items()]
+    pairs += [(f"momentum.{i}", st["momentum_buffer"],
+               b.optimizer.state_dict()["state"][i]["momentum_buffer"])
+              for i, st in a.optimizer.state_dict()["state"].items()]
+    pairs += [("choice_th", a.choice_th, b.choice_th)]
+    diff = [k for k, x, y in pairs if not torch.equal(x, y)]
+    if diff or (resumed.start_epoch, b.step) != (1, a.step):
+        fail(f"--load did not restore the state: {diff[:5]}, start epoch "
+             f"{resumed.start_epoch}, step {b.step} vs {a.step}")
+    worst = 0.0
+    for name, model in (("ema", b.teacher), ("stu", b.student)):
+        again = resumed.evaluator.evaluate(model, 1, ema=name == "ema")
+        worst = max(worst, float(np.abs(again["metrics"]
+                                        - res[name]["metrics"]).max()),
+                    abs(again["loss"] - res[name]["loss"]))
+    if worst > 1e-6:
+        fail(f"the resumed trainer's evaluation differs by {worst}")
+    resumed.close()
+    trainer.close()
+    mib = os.path.getsize(os.path.join(snap, "checkpoint.pth")) / 2 ** 20
+    print(f"[eval] checkpoint written ({mib:.0f} MiB) and resumed with "
+          f"--load: {len(pairs)} tensors equal, epoch {resumed.start_epoch}, "
+          f"step "
+          f"{b.step}; evaluation reproduced within {worst:.1e} | {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ust_run_tpu_torch.test", "--dataset",
+         "fundus", "--data_root", cfg.data_root, "--model_root",
+         cfg.model_root, "--save_name", cfg.save_name, "--domain_num", "4",
+         "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": HERE})
+    overall = [ln for ln in proc.stdout.splitlines()
+               if "epoch 1 : loss" in ln and "domain" not in ln]
+    if proc.returncode != 0 or not overall:
+        fail(f"python -m ust_run_tpu_torch.test: rc {proc.returncode}\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    loss = float(overall[-1].split("loss : ")[1].split()[0])
+    if not np.isfinite(loss):
+        fail(f"python -m ust_run_tpu_torch.test: loss {loss}")
+    print(f"[eval] python -m ust_run_tpu_torch.test on the best model: "
+          f"rc 0, overall loss {loss:.4f}, {time.perf_counter() - t0:.1f} s "
+          f"in all | {card}", flush=True)
+
+
+def phase_busi(card, work):
+    """The softmax profile on the card: BUSI_STEPS steps at full width,
+    then one evaluation of both models."""
+    import numpy as np
+    import torch
+    from ust_run_tpu_torch.config import build_parser, config_from_args
+    from ust_run_tpu_torch.data.synthetic import generate
+    from ust_run_tpu_torch.engine.trainer import Trainer
+
+    root = generate("BUSI", os.path.join(work, "busi"), n_train=8,
+                    n_test=2, size=256, seed=1)
+    argv = ["--dataset", "BUSI", "--data_root", root, "--lb_domain", "1",
+            "--lb_num", "4", "--save_name", "busi", "--overwrite",
+            "--model_root", os.path.join(work, "model"), "--device", "cuda"]
+    cfg = config_from_args(build_parser().parse_args(argv)).resolve()
+    trainer = Trainer(cfg, snapshot_dir(cfg))
+    p = cfg.profile()
+    if (p.patch_size, p.num_channels, p.num_classes, p.multilabel,
+            cfg.label_bs, cfg.unlabel_bs) != (256, 1, 2, False, 4, 4):
+        fail("BUSI phase is not the full-width softmax configuration")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(BUSI_STEPS):
+        t0 = time.perf_counter()
+        metrics += trainer.train_steps(1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(metrics):
+        for k in ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
+                  "unsup_loss_s"):
+            if not np.isfinite(float(m[k])):
+                fail(f"BUSI step {i + 1}: {k} = {m[k]}")
+    res = {name: trainer.evaluator.evaluate(model, 1, ema=name == "ema")
+           for name, model in (("ema", trainer.state.teacher),
+                               ("stu", trainer.state.student))}
+    for name, r in res.items():
+        check_eval(r, f"BUSI {name}", 1)
+    trainer.close()
+    print(f"[busi] BUSI UNet 64->1024, 1x256^2, batch 4+4, softmax, bf16 "
+          f"autocast: {BUSI_STEPS} steps at "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f" ms (first includes warm-up), peak {peak_gib:.2f} GiB, last "
+          f"loss {float(metrics[-1]['loss']):.4f}; EMA dice "
+          f"{res['ema']['metrics'][0][0]:.4f} hd95 "
+          f"{res['ema']['metrics'][3][0]:.2f}, student dice "
+          f"{res['stu']['metrics'][0][0]:.4f}; all finite | {card}",
+          flush=True)
 
 
 def unet_forward_gflop(model, size, channels, device):
@@ -355,27 +731,41 @@ def main():
     sys.path.insert(0, HERE)
     from ust_run_tpu_torch.engine.trainer import set_numerics
     from ust_run_tpu_torch.ops import cuda_build
+    from ust_run_tpu_torch.utils import boundary_native
 
     card = card_line()
     print(f"[device] {card} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    lib = cuda_build.build("uniform_rng")
-    print(f"[build] {os.path.relpath(lib, HERE)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    builds = [functools.partial(cuda_build.build, "uniform_rng"),
+              functools.partial(cuda_build.build, "fused_conv"),
+              boundary_native.build]
+    with ThreadPoolExecutor(len(builds)) as pool:    # every compiler at once
+        libs = list(pool.map(lambda build: build(), builds))
+    print(f"[build] " + ", ".join(os.path.relpath(lib, HERE) for lib in libs)
+          + f" in {time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
 
     set_numerics()
-    kernels = phase_kernels(card)
+    kernels = phase_kernels(card) + [phase_fused_conv(card)]
     phase_reference(card)
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches = phase_main_path(card, work, args.profile)
+        launches, trainer, argv = phase_main_path(card, work, args.profile)
+        phase_eval(card, trainer, argv, work)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_busi(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] == "uniform_rng":
+            k["launches"] = launches["uniform_rng"]
+        else:
+            # its path is the microbench; the model never calls it
+            k["main_path_launches"] = launches[k["name"]]
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                     "max_abs_err"):
             if k[key] is not None and not math.isfinite(k[key]):

@@ -1,7 +1,10 @@
 """Package-level checks of ust_run_tpu_torch: it imports no JAX, it has no
 silent CPU fallback, its CLI mirrors the JAX package's, its trainer runs
-end to end on the CPU when asked to, and (on a card only) its CUDA kernel
-is bit-equal to the plain version."""
+end to end on the CPU when asked to (training, evaluation, checkpoints,
+--eval, --load and the standalone evaluator), and (on a card only) its
+CUDA kernels agree with their plain versions. The file imports no JAX at
+the top, so the card tests run where JAX is not installed:
+`python -m pytest --noconftest -m cuda tests/test_torch_package.py`."""
 
 import dataclasses
 import os
@@ -32,19 +35,24 @@ loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "optax", "ust_run_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded
-print(len(mods))
+print(" ".join(mods))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    mods = set(out.stdout.split())
+    assert len(mods) >= 36
+    assert {f"ust_run_tpu_torch.{m}" for m in (
+        "ops.fused_conv", "utils.boundary", "utils.boundary_native",
+        "engine.evaluator", "engine.checkpoint", "test")} <= mods
 
 
 def test_no_cpu_fallback(tmp_path, monkeypatch):
     """Without CUDA, every entry raises unless the CPU is asked for."""
+    from ust_run_tpu_torch import test as test_entry
     from ust_run_tpu_torch import train
-    from ust_run_tpu_torch.ops import rng
+    from ust_run_tpu_torch.ops import fused_conv, rng
     from ust_run_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -56,9 +64,22 @@ def test_no_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--dataset", "fundus", "--model_root", str(tmp_path),
                     "--data_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_entry.main(["--dataset", "fundus", "--model_root",
+                         str(tmp_path), "--data_root", str(tmp_path)])
     assert not os.listdir(tmp_path)          # raised before touching files
     assert rng.uniform_batch(2, 8, generator=g, device="cpu").shape \
         == (2, 8, 8)
+    # the fused conv takes its plain version only for a CPU tensor, and
+    # raises for any other device instead of carrying on there
+    y = torch.ones((1, 8, 8, 4))
+    args = (torch.ones((1, 4)), torch.zeros((1, 4)), torch.ones((3, 3, 4, 4)))
+    before = fused_conv.launches
+    assert fused_conv.bn_relu_conv3x3(y, *args)[0].shape == (1, 8, 8, 4)
+    assert fused_conv.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_conv.bn_relu_conv3x3(y.to("meta"),
+                                   *(a.to("meta") for a in args))
 
 
 def test_cli_and_hyperparams_mirror_jax():
@@ -76,24 +97,30 @@ def test_cli_and_hyperparams_mirror_jax():
 
 
 def test_trainer_entry_runs_on_cpu_when_asked(tmp_path):
-    """The module entry end to end at a tiny size with --device cpu: a
-    synthetic fundus corpus, two epochs of two steps, finite losses in
-    the log, the RNG's plain version on the CPU."""
+    """The module entries end to end at a tiny size with --device cpu: a
+    synthetic fundus corpus, two epochs of two steps with finite losses,
+    an EMA and student evaluation and a checkpoint at each epoch end, the
+    RNG's plain version on the CPU; then --load resumes for a third
+    epoch, --eval evaluates and saves nothing, and the standalone
+    evaluator reads the best model."""
+    from ust_run_tpu_torch import test as test_entry
     from ust_run_tpu_torch import train
     from ust_run_tpu_torch.data.synthetic import generate
     from ust_run_tpu_torch.ops import rng
 
     root = generate("fundus", str(tmp_path / "fundus"), n_train=5,
                     n_test=1, size=32, seed=0)
+    common = ["--dataset", "fundus", "--data_root", root, "--lb_domain", "1",
+              "--lb_num", "3", "--num_eval_iter", "2", "--log_interval",
+              "1", "--patch_override", "32", "--eval_batch", "2",
+              "--model_root", str(tmp_path / "model"), "--device", "cpu"]
     before = rng.launches
-    trainer = train.main([
-        "--dataset", "fundus", "--data_root", root, "--lb_domain", "1",
-        "--lb_num", "3", "--save_name", "t", "--max_iterations", "4",
-        "--num_eval_iter", "2", "--log_interval", "1", "--patch_override",
-        "32", "--model_root", str(tmp_path / "model"), "--device", "cpu"])
+    trainer = train.main(common + ["--save_name", "t", "--max_iterations",
+                                   "4"])
     assert trainer.iter_num == 4 and trainer.state.step == 4
     assert rng.launches == before             # no kernel on the CPU
-    log = open(tmp_path / "model" / "fundus" / "t" / "log.txt").read()
+    snap = tmp_path / "model" / "fundus" / "t"
+    log = open(snap / "log.txt").read()
     lines = [ln for ln in log.splitlines() if "iteration" in ln
              and "sup_loss" in ln]
     assert len(lines) == 2, log
@@ -101,6 +128,33 @@ def test_trainer_entry_runs_on_cpu_when_asked(tmp_path):
         loss = float(ln.split("loss : ")[1].split(",")[0])
         assert np.isfinite(loss)
     assert "epoch 2:" in log
+    for tag in ("test ema model", "test stu model", "save checkpoint to"):
+        assert log.count(tag) == 2, tag
+    assert "save cur best avg model to" in log
+    assert (snap / "checkpoint.pth").exists()
+    assert (snap / "unet_avg_dice_best_model.pth").exists()
+
+    resumed = train.main(common + ["--save_name", "t", "--max_iterations",
+                                   "6", "--load"])
+    assert resumed.start_epoch == 2 and resumed.state.step == 6
+    assert "Models restored from epoch 2" in open(snap / "log.txt").read()
+
+    ev = train.main(common + ["--save_name", "e", "--eval"])
+    assert ev.state.step == 0
+    assert sorted(os.listdir(tmp_path / "model" / "fundus" / "e")) == [
+        "log", "log.txt", "train.py"]
+
+    # the standalone evaluator decodes at the profile's 256 px (it has no
+    # --patch_override), so one domain keeps it small
+    dice = test_entry.main(["--dataset", "fundus", "--data_root", root,
+                            "--save_name", "t", "--model_root",
+                            str(tmp_path / "model"), "--domain_num", "1",
+                            "--device", "cpu"])
+    assert len(dice) == 2 and all(0.0 <= d <= 1.0 for d in dice)
+    assert "val_cup_hd" in open(snap / "test_log.txt").read()
+    with pytest.raises(NotImplementedError, match="visualize"):
+        test_entry.main(["--dataset", "fundus", "--save_img", "--device",
+                         "cpu"])
 
 
 @pytest.mark.cuda
@@ -118,3 +172,42 @@ def test_uniform_kernel_bit_equal_on_card():
         assert rng.launches == before + 1
         plain = rng.uniform_batch_plain(n, size, 12345, device="cuda")
         assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv_kernel_matches_plain_on_card(dtype):
+    """On a card: the bn_relu_conv3x3 kernel against its plain version
+    (TF32 off) at the JAX test shapes; f32 to 1e-4 (accumulation order
+    over K up to 576), bf16 `out` within one bf16 ulp, moments to rtol
+    1e-5 plus 1e-5 of their largest magnitude (the f32 summation order of
+    the tile reduce; these shapes have 2-8 tiles per sample, so a tile
+    dropped from the reduce moves a moment by a tenth or more)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from ust_run_tpu_torch.ops import fused_conv as fc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    for b, h, w, c, co in [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8),
+                           (1, 16, 16, 64, 16)]:
+        y, inv, shift, wk = (torch.from_numpy(a.astype(np.float32)).cuda()
+                             for a in (rng.normal(size=(b, h, w, c)),
+                                       rng.uniform(0.5, 1.5, (b, c)),
+                                       rng.normal(size=(b, c)) * 0.3,
+                                       rng.normal(size=(3, 3, c, co)) * 0.1))
+        y = y.to(dtype)
+        before = fc.launches
+        out, m1, m2 = fc.bn_relu_conv3x3(y, inv, shift, wk)
+        torch.cuda.synchronize()
+        assert fc.launches == before + 1
+        p_out, p1, p2 = fc.bn_relu_conv3x3_plain(y, inv, shift, wk)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, p_out, rtol=1e-4, atol=1e-4)
+        else:
+            ulp = torch.finfo(torch.bfloat16).eps * p_out.float().abs()
+            assert bool(((out.float() - p_out.float()).abs()
+                         <= ulp + 1e-30).all())
+        for m, p in ((m1, p1), (m2, p2)):
+            torch.testing.assert_close(m, p, rtol=1e-5,
+                                       atol=1e-5 * p.abs().max().item())

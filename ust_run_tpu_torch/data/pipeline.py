@@ -9,6 +9,7 @@ step is a couple of numpy gathers.
 """
 
 import numpy as np
+import torch
 
 
 class BatchPipeline:
@@ -41,6 +42,23 @@ class BatchPipeline:
         idx = self._order[self._pos:self._pos + self.bs]
         self._pos += self.bs
         return np.asarray(idx)
+
+    def state(self):
+        """The sampler's position as tensors and numbers (a checkpoint
+        entry that loads with torch.load(weights_only=True))."""
+        _, keys, pos, has_gauss, gauss = self.rng.get_state()
+        return {"keys": torch.from_numpy(keys.astype(np.int64)),
+                "pos": int(pos), "has_gauss": int(has_gauss),
+                "gauss": float(gauss),
+                "order": None if self._order is None
+                else torch.from_numpy(np.asarray(self._order, np.int64)),
+                "at": self._pos}
+
+    def load_state(self, s):
+        self.rng.set_state(("MT19937", s["keys"].numpy().astype(np.uint32),
+                            s["pos"], s["has_gauss"], s["gauss"]))
+        self._order = None if s["order"] is None else s["order"].numpy()
+        self._pos = s["at"]
 
     def next(self):
         idx = self.next_indices()

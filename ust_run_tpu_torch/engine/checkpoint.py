@@ -1,0 +1,163 @@
+"""Checkpoints in upstream's `.pth` format (port of
+ust_run_tpu/engine/checkpoint.py).
+
+Reference (utils/util.py:259-297, train.py:542-548, 946-958):
+  * the rolling `checkpoint.pth`, written after every epoch: a dict with
+    `state_dict` (the student), `ema_state_dict` (the teacher) and
+    `epoch`, as ust_run_tpu/utils/torch_import.py:230-256 reads it. The
+    port adds what a bit-equal resume needs: the SGD state, `step`, the
+    curriculum queue and LQ carry, `choice_th`, both generators' states,
+    the samplers' states, and the best-dice bookkeeping (`best_dice`,
+    `best_iter`, `stu_best_dice`, `stu_best_iter`);
+  * `unet_avg_dice_best_model.pth`, a bare student `state_dict`, written
+    on a new best student average dice and loaded by test.py:242;
+  * `--load` resumes from `<model_root>/<dataset>/<save_name>/
+    checkpoint.pth` (the `--load_path` flag is dead upstream and here).
+
+Every file holds only tensors, numbers, strings and containers of them,
+so it loads with `torch.load(weights_only=True)`. Writes go to a temp
+file, are fsynced and renamed into place; the state is copied to the host
+before a worker thread writes it, so later steps cannot change it
+mid-write.
+"""
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from ust_run_tpu_torch.semisup.state import CurriculumQueue, LQCarry
+
+
+def host_copy(obj):
+    """A host copy of every tensor in a nest of dicts, lists and tuples
+    (contiguous, detached, never aliasing the live state)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", memory_format=torch.contiguous_format,
+                               copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(v) for v in obj)
+    return obj
+
+
+def atomic_save(path, payload):
+    """torch.save to a sibling temp file, fsync, then os.replace(): a crash
+    mid-write can never truncate the only resume artifact."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+class AsyncCheckpointer:
+    """Writes host copies on one worker thread while training goes on;
+    `wait` re-raises a failed write."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._future = None
+
+    def submit(self, fn, *args):
+        self.wait()
+        self._future = self._pool.submit(fn, *args)
+
+    def wait(self):
+        future, self._future = self._future, None
+        if future is not None:
+            future.result()
+
+    def close(self):
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown()
+
+
+def state_payload(state, epoch, bests, samplers):
+    """The rolling checkpoint's dict for `state` (on its device; pass it
+    through `host_copy` before handing it to a writer). `bests` =
+    (best_dice, best_iter, stu_best_dice, stu_best_iter); `samplers` maps
+    a name to a sampler state."""
+    best_dice, best_iter, stu_best_dice, stu_best_iter = bests
+    return {
+        "epoch": epoch,
+        "state_dict": state.student.state_dict(),
+        "ema_state_dict": state.teacher.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "step": state.step,
+        "queue": state.queue.fields(),
+        "lq": {"img": state.lq.img, "pl": state.lq.pl, "conf": state.lq.conf,
+               "valid": state.lq.valid},
+        "choice_th": state.choice_th,
+        "generator": state.generator.get_state(),
+        "host_generator": state.host_generator.get_state(),
+        "samplers": samplers,
+        "best_dice": float(best_dice), "best_iter": int(best_iter),
+        "stu_best_dice": float(stu_best_dice),
+        "stu_best_iter": int(stu_best_iter),
+    }
+
+
+def load_checkpoint(path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_best_model(path):
+    """A student state_dict from the port's best-model file, upstream's
+    (a bare state_dict) or a full checkpoint (its `state_dict`)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in payload and isinstance(payload["state_dict"], dict):
+        return payload["state_dict"]
+    return payload
+
+
+def _incompatible(what):
+    return ValueError(
+        "checkpoint is incompatible with the configured model: " + what
+        + " (different --model, dataset profile or patch size)")
+
+
+def _check_tensors(live, saved, where):
+    if set(live) != set(saved):
+        missing = sorted(set(live) - set(saved))[:3]
+        extra = sorted(set(saved) - set(live))[:3]
+        raise _incompatible(f"{where} keys differ (missing {missing}, "
+                            f"unexpected {extra})")
+    for k, v in live.items():
+        if tuple(v.shape) != tuple(saved[k].shape):
+            raise _incompatible(
+                f"{where}[{k!r}] has shape {tuple(saved[k].shape)} where "
+                f"the live state expects {tuple(v.shape)}")
+
+
+def restore_onto(module, state_dict):
+    """load_state_dict with a readable error when keys or shapes differ."""
+    _check_tensors(module.state_dict(), state_dict, "state_dict")
+    module.load_state_dict(state_dict)
+
+
+def restore_state(state, payload):
+    """Put a rolling checkpoint back into the live train state, in place."""
+    restore_onto(state.student, payload["state_dict"])
+    restore_onto(state.teacher, payload["ema_state_dict"])
+    live_q = state.queue.fields()
+    _check_tensors(live_q, payload["queue"], "queue")
+    lq = payload["lq"]
+    _check_tensors({"img": state.lq.img, "pl": state.lq.pl,
+                    "conf": state.lq.conf}, {k: lq[k] for k in
+                                             ("img", "pl", "conf")}, "lq")
+    state.optimizer.load_state_dict(payload["optimizer"])
+    dev = state.choice_th.device
+    state.queue = CurriculumQueue(**{k: payload["queue"][k].to(dev)
+                                     for k in live_q})
+    state.lq = LQCarry(**{k: lq[k].to(dev) for k in
+                          ("img", "pl", "conf", "valid")})
+    state.choice_th = payload["choice_th"].to(dev)
+    state.generator.set_state(payload["generator"])
+    state.host_generator.set_state(payload["host_generator"])
+    state.step = int(payload["step"])
+    return state

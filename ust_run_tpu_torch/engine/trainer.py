@@ -1,5 +1,5 @@
-"""The training loop (port of the training half of
-ust_run_tpu/engine/trainer.py:72-460).
+"""The training loop, evaluation and checkpoints (port of
+ust_run_tpu/engine/trainer.py).
 
   * datasets and samplers with the reference's split semantics
     (train.py:464-494);
@@ -10,10 +10,11 @@ ust_run_tpu/engine/trainer.py:72-460).
   * per-step logging with the reference's tag names (train.py:859-870).
     The packed metrics of a step are copied to pinned host memory without
     blocking and read one step later, so the host never waits on the step
-    it has just queued (trainer.py:274-282, 329-349).
-
-Evaluation, checkpoints, `--eval` and `--load` are not ported yet: they
-raise NotImplementedError, and an epoch end only logs.
+    it has just queued (trainer.py:274-282, 329-349);
+  * EMA and student evaluation every epoch with best-dice tracking and
+    the best-student snapshot (train.py:913-954; trainer.py:463-532);
+  * the rolling checkpoint, written by a worker thread from a host copy,
+    and `--load` resume (train.py:542-548, 955-958).
 """
 
 import logging
@@ -25,7 +26,9 @@ import torch
 
 from ust_run_tpu_torch.config import TrainConfig
 from ust_run_tpu_torch.data.datasets import SegmentationDataset
-from ust_run_tpu_torch.data.pipeline import BatchPipeline
+from ust_run_tpu_torch.data.pipeline import BatchPipeline, TestLoader
+from ust_run_tpu_torch.engine import checkpoint as ckpt
+from ust_run_tpu_torch.engine.evaluator import Evaluator
 from ust_run_tpu_torch.semisup.state import create_train_state, reset_epoch
 from ust_run_tpu_torch.semisup.step import (HyperParams, step_fn,
                                             unpack_metrics)
@@ -66,10 +69,6 @@ class _Pending:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, snapshot_path):
-        if cfg.eval or cfg.load:
-            raise NotImplementedError(
-                "--eval / --load (evaluation and checkpoints) are not "
-                "ported to ust_run_tpu_torch yet")
         if cfg.model != "unet":
             raise NotImplementedError(f"model {cfg.model!r} is not ported")
         self.cfg = cfg
@@ -93,6 +92,11 @@ class Trainer:
         self.lb_pipe = BatchPipeline(self.lb_ds, cfg.label_bs, seed=cfg.seed)
         self.ulb_pipe = BatchPipeline(self.ulb_ds, cfg.unlabel_bs,
                                       seed=cfg.seed + 1)
+        test_loaders = [TestLoader(SegmentationDataset(
+            cfg.dataset, p, cfg.data_root, "test", -1, [i]), cfg.eval_batch)
+            for i in domains]
+        self.evaluator = Evaluator(self.hp, test_loaders, list(p.parts),
+                                   self.device)
 
         # the decoded corpus goes to the device ONCE; steps receive indices
         corpus = {"lb_img": self.lb_ds.images, "lb_lab": self.lb_ds.labels,
@@ -104,10 +108,39 @@ class Trainer:
         self.state = create_train_state(self.hp, cfg.seed, self.device,
                                         amp=amp)
         self.writer = MetricWriter(os.path.join(snapshot_path, "log"))
-        self.iter_num = 0
+
+        # best-dice bookkeeping (train.py:526-535)
+        n_part = p.n_part
+        self.best_dice = [0.0] * n_part
+        self.best_dice_iter = [-1] * n_part
+        self.best_avg_dice = 0.0
+        self.best_avg_dice_iter = -1
+        self.dice_of_best_avg = [0.0] * n_part
+        self.stu_best_dice = [0.0] * n_part
+        self.stu_best_dice_iter = [-1] * n_part
+        self.stu_best_avg_dice = 0.0
+        self.stu_best_avg_dice_iter = -1
+        self.stu_dice_of_best_avg = [0.0] * n_part
+        self.start_epoch = 0
+        self._ckpt_io = ckpt.AsyncCheckpointer()
+        if cfg.load:
+            self._resume(os.path.join(snapshot_path, "checkpoint.pth"))
+        self.iter_num = self.state.step
         self._pending = None
         self._meters = None
-        self.new_epoch(0)
+        self.new_epoch(self.start_epoch)
+
+    def _resume(self, path):
+        payload = ckpt.load_checkpoint(path)
+        ckpt.restore_state(self.state, payload)
+        self.lb_pipe.load_state(payload["samplers"]["lb"])
+        self.ulb_pipe.load_state(payload["samplers"]["ulb"])
+        self.start_epoch = payload["epoch"]
+        self.best_avg_dice = payload["best_dice"]
+        self.best_avg_dice_iter = payload["best_iter"]
+        self.stu_best_avg_dice = payload["stu_best_dice"]
+        self.stu_best_avg_dice_iter = payload["stu_best_iter"]
+        logging.info("Models restored from epoch %d", self.start_epoch)
 
     # ------------------------------------------------------------------
     def _next_batch(self):
@@ -155,8 +188,8 @@ class Trainer:
         max_epoch = cfg.max_iterations // cfg.num_eval_iter
         logging.info("%d iterations per epoch", cfg.num_eval_iter)
         logging.info("%d epoch in all.", max_epoch)
-        for epoch_num in range(max_epoch):
-            if epoch_num:
+        for epoch_num in range(self.start_epoch, max_epoch):
+            if epoch_num > self.start_epoch:
                 self.new_epoch(epoch_num)
             t0 = time.time()
             self.train_steps(cfg.num_eval_iter)
@@ -165,9 +198,15 @@ class Trainer:
             logging.info("epoch %d: %.1f it/s, %.1f images/s",
                          epoch_num + 1, cfg.num_eval_iter / dt, imgs / dt)
             self._log_epoch(parts)
-            logging.info("evaluation and checkpoints are not ported yet; "
-                         "epoch %d ends without them", epoch_num + 1)
-        self.writer.close()
+            self.evaluate_and_checkpoint(epoch_num, self.iter_num)
+        self.close()
+
+    def close(self):
+        """Wait for the last checkpoint write and close the metric log."""
+        try:
+            self._ckpt_io.close()
+        finally:
+            self.writer.close()
 
     # ------------------------------------------------------------------
     def _log_epoch(self, parts):
@@ -239,3 +278,78 @@ class Trainer:
             for i, pn in enumerate(parts):
                 logging.info("cur simple dice avg %s:%f", pn,
                              float(m["queue_dice"][i]))
+
+    # ------------------------------------------------------------------
+    def evaluate_and_checkpoint(self, epoch_num, iter_num, save=True):
+        """EMA then student evaluation with best tracking (trainer.py
+        :463-510); with `save`, the best-student snapshot and the rolling
+        checkpoint, copied to the host here and written by the worker.
+        Returns (ema dice, student dice) per part."""
+        parts = list(self.profile_.parts)
+        n_part = len(parts)
+        logging.info("test ema model")
+        val_dice = self.evaluator.run(self.state.teacher, epoch_num + 1,
+                                      self.writer, ema=True)
+        text = ""
+        for i, pn in enumerate(parts):
+            if val_dice[i] > self.best_dice[i]:
+                self.best_dice[i] = val_dice[i]
+                self.best_dice_iter[i] = iter_num
+            text += "val_%s_best_dice: %f at %d iter, " % (
+                pn, self.best_dice[i], self.best_dice_iter[i])
+        if sum(val_dice) / n_part > self.best_avg_dice:
+            self.best_avg_dice = sum(val_dice) / n_part
+            self.best_avg_dice_iter = iter_num
+            self.dice_of_best_avg = list(val_dice)
+        text += "val_best_avg_dice: %f at %d iter" % (
+            self.best_avg_dice, self.best_avg_dice_iter)
+        if n_part > 1:
+            for i, pn in enumerate(parts):
+                text += ", %s_dice: %f" % (pn, self.dice_of_best_avg[i])
+        logging.info(text)
+
+        logging.info("test stu model")
+        stu_dice = self.evaluator.run(self.state.student, epoch_num + 1,
+                                      self.writer, ema=False)
+        text = ""
+        for i, pn in enumerate(parts):
+            if stu_dice[i] > self.stu_best_dice[i]:
+                self.stu_best_dice[i] = stu_dice[i]
+                self.stu_best_dice_iter[i] = iter_num
+            text += "stu_val_%s_best_dice: %f at %d iter, " % (
+                pn, self.stu_best_dice[i], self.stu_best_dice_iter[i])
+        is_best = sum(stu_dice) / n_part > self.stu_best_avg_dice
+        if is_best:
+            self.stu_best_avg_dice = sum(stu_dice) / n_part
+            self.stu_best_avg_dice_iter = iter_num
+            self.stu_dice_of_best_avg = list(stu_dice)
+        text += "val_best_avg_dice: %f at %d iter" % (
+            self.stu_best_avg_dice, self.stu_best_avg_dice_iter)
+        if n_part > 1:
+            for i, pn in enumerate(parts):
+                text += ", %s_dice: %f" % (pn, self.stu_dice_of_best_avg[i])
+        logging.info(text)
+
+        if save:         # --eval reports only and never touches artifacts
+            payload = ckpt.host_copy(ckpt.state_payload(
+                self.state, epoch_num + 1,
+                (self.best_avg_dice, self.best_avg_dice_iter,
+                 self.stu_best_avg_dice, self.stu_best_avg_dice_iter),
+                {"lb": self.lb_pipe.state(), "ulb": self.ulb_pipe.state()}))
+            best = payload["state_dict"] if is_best else None
+            self._ckpt_io.submit(self._write_checkpoint, payload, best)
+        return val_dice, stu_dice
+
+    def _write_checkpoint(self, payload, best):
+        if best is not None:
+            path = os.path.join(self.snapshot_path,
+                                f"{self.cfg.model}_avg_dice_best_model.pth")
+            logging.info("save cur best avg model to %s", path)
+            ckpt.atomic_save(path, best)      # a bare student state_dict
+        path = os.path.join(self.snapshot_path, "checkpoint.pth")
+        ckpt.atomic_save(path, payload)
+        logging.info("save checkpoint to %s", path)
+
+    def wait_for_checkpoint(self):
+        """Block until the last submitted checkpoint is on disk."""
+        self._ckpt_io.wait()

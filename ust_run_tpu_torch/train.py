@@ -5,7 +5,9 @@
 
 Flags are those of the JAX package's train.py (the port's own
 `config.build_parser`) plus `--device` (default cuda; a missing card
-raises unless `--device cpu` is given).
+raises unless `--device cpu` is given). `--eval` runs one evaluation of
+the EMA and student models and saves nothing (train.py:17-20); `--load`
+resumes from `<model_root>/<dataset>/<save_name>/checkpoint.pth`.
 """
 
 import sys
@@ -21,6 +23,10 @@ def main(argv=None):
     resolve_device(args.device)          # raise before touching any file
     cfg, snapshot_path = bootstrap(args, __file__)
     trainer = Trainer(cfg, snapshot_path)
+    if cfg.eval:
+        trainer.evaluate_and_checkpoint(-1, 0, save=False)
+        trainer.close()
+        return trainer
     trainer.train()
     return trainer
 
