@@ -7,13 +7,18 @@ Phases, one line each (or a few); any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every kernel library from the checkout at once
      (nvcc for sm_90a: csrc/uniform_rng.cu and csrc/fused_conv.cu; g++
-     for the boundary-metric engine native/boundary.cc);
+     for the boundary-metric engine native/boundary.cc) and prints what
+     ptxas reports for each fused_conv kernel (registers, spills);
   3. kernels: each kernel against its plain PyTorch version on the card,
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar;
-     - bn_relu_conv3x3 at the JAX test shapes in f32 and bf16, the
+       ragged one, and the statistical bar (its timing is phase 9);
+     - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
+       (ragged image edges, a partial last K chunk with C > 64, a partial
+       N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
+       the library's routes: TMA + wgmma for bf16 with C, Co multiples
+       of 8, WMMA otherwise, each of which must launch), the
        all-ones edge case (exact 4C/6C/9C counts) and the four microbench
        shapes of tools/bench_fused_conv.py in bf16 (f32 `out` to 1e-4:
        accumulation order over K up to 576; bf16 `out` within one bf16
@@ -21,7 +26,8 @@ Phases, one line each (or a few); any failure exits non-zero:
        near-cancelling sums let the f32 order move the rounding; moments
        to rtol 1e-5, atol 1e-5 of their largest magnitude, a bar that
        must be narrower than what one tile dropped from the moments'
-       tile reduce would lose at every microbench shape); then its
+       tile reduce would lose at every microbench shape, at the tile
+       geometry the library reports for the route); then its
        path, the microbench at those shapes: kernel, plain version and
        `reference_chain` (BN+ReLU pass, cuDNN bf16 convolution, moment
        passes: the chain the kernel replaces), with bound, TFLOP/s and
@@ -49,7 +55,11 @@ Phases, one line each (or a few); any failure exits non-zero:
      evaluation equal to the first within 1e-6), and
      `python -m ust_run_tpu_torch.test` on the saved best model;
   8. BUSI: the softmax profile at full width (1x256^2, batch 4+4): 3
-     steps with every loss finite, then one evaluation of both models.
+     steps with every loss finite, then one evaluation of both models;
+  9. RNG timing: the uniform-field RNG's and torch.rand's device time
+     per kernel (torch.profiler) apart from the host's cost per call
+     (host clock). Last, so that no phase timed before it runs in a
+     process that torch.profiler has traced.
 Then a JSON line with the kernels' numbers, the card line again, and
 `{"ok": true, "device": {...}}` as the last line.
 
@@ -81,6 +91,14 @@ MOMENT_RTOL = 1e-5                # bn_relu_conv3x3 moments: rtol, and atol
 #                                   as a share of the largest magnitude
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS, BUSI_STEPS = 3, 10, 5, 3
 N_TEST = 8                        # synthetic test images per domain
+FUSED_TEST_SHAPES = [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8),
+                     (1, 16, 16, 64, 16)]        # tests/test_fused_conv.py
+# (B, H, W, C, Co) the TMA route's masks meet: ragged image edges, a
+# partial last K chunk with C > 64 (136 = 2 x 64 + 8) and a partial second
+# N tile at N tile 128 (200 = 128 + 72; 72 = 64 + 8); C = 3, Co = 70 go
+# the other route
+FUSED_EDGE_SHAPES = [(2, 40, 50, 136, 200), (2, 19, 37, 64, 72),
+                     (2, 19, 37, 3, 70)]
 # (label, B, H, W, C, Co): the fused step's conv shapes timed by
 # tools/bench_fused_conv.py:34-39 (21 = the student megabatch, 12 = the
 # teacher's three groups of 4)
@@ -88,8 +106,8 @@ FUSED_SHAPES = [("L1 student", 21, 256, 256, 64, 64),
                 ("L1 teacher", 12, 256, 256, 64, 64),
                 ("L2 student", 21, 128, 128, 128, 128),
                 ("L3 student", 21, 64, 64, 256, 256)]
-FUSED_TEST_SHAPES = [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8),
-                     (1, 16, 16, 64, 16)]        # tests/test_fused_conv.py
+RNG_SHAPE = (16, 256)             # the main path's fields: (n, S)
+RNG_SEED = 0x5EED_0F_F1E1D5
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 
@@ -110,6 +128,8 @@ def card_line():
 
 
 def cuda_ms(fn, reps):
+    """ms per call of `reps` back-to-back calls, CUDA events around them,
+    after 3 warm-up calls."""
     import torch
     for _ in range(3):
         fn()
@@ -123,59 +143,65 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernels(card):
+def profiled_us(fn, reps):
+    """(mean device µs per call, kernels per call) of `reps` calls of fn,
+    from the durations torch.profiler records for the CUDA kernels they
+    launch; fails if it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        fail("torch.profiler recorded no CUDA kernel")
+    return (sum(e.time_range.elapsed_us() for e in kernels) / reps,
+            len(kernels) / reps)
+
+
+def host_us(fn, batches=21, per_batch=50):
+    """The host's least µs per call over `batches` batches of `per_batch`
+    back-to-back calls of fn, host clock, the card synchronised between
+    batches only: what one call costs the host when nothing else on the
+    machine interrupts it (other work only adds)."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per_batch):
+            fn()
+        times.append((time.perf_counter() - t0) / per_batch * 1e6)
+    torch.cuda.synchronize()
+    return min(times)
+
+
+def time_rng(reps):
+    """uniform_rng and torch.rand at the main path's shape: device µs per
+    kernel, host µs per call and back-to-back µs per call, for the
+    `ust_run_tpu_torch` on sys.path."""
     import torch
     from ust_run_tpu_torch.ops import rng
-
-    seed = 0x5EED_0F_F1E1D5
-    for n, size in ((16, 256), (3, 37)):
-        out = torch.empty((n, size, size), device="cuda")
-        rng.uniform_fields(out, seed)
-        torch.cuda.synchronize()
-        plain = rng.uniform_batch_plain(n, size, seed, device="cuda")
-        if not torch.equal(out, plain):
-            fail(f"uniform_rng differs from its plain version at "
-                 f"{(n, size, size)}: max |d| "
-                 f"{(out - plain).abs().max().item()}")
-    n, size = 16, 256
+    n, size = RNG_SHAPE
     out = torch.empty((n, size, size), device="cuda")
-    rng.uniform_fields(out, seed)
-    plain = rng.uniform_batch_plain(n, size, seed, device="cuda")
-    max_err = (out - plain).abs().max().item()
-    u = out.double()
-    lo, hi = u.min().item(), u.max().item()
-    mean, std = u.mean().item(), u.std().item()
-    if not (lo >= 0.0 and hi < 1.0 and abs(mean - 0.5) < 0.01
-            and abs(std - 12 ** -0.5) < 0.01):
-        fail(f"uniform_rng statistics: min {lo} max {hi} mean {mean} "
-             f"std {std}")
-    if (u[0] - u[1]).abs().max().item() <= 0.1:
-        fail("uniform_rng fields 0 and 1 do not differ")
-
-    ms = cuda_ms(lambda: rng.uniform_fields(out, seed), 200)
-    plain_ms = cuda_ms(lambda: rng.uniform_batch_plain(n, size, seed,
-                                                       device="cuda"), 10)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    lib_ms = cuda_ms(lambda: torch.rand((n, size, size), device="cuda",
-                                        generator=g), 200)
-    nbytes = n * size * size * 4
-    quads = n * ((size * size + 3) // 4)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = quads * PHILOX_OPS_PER_QUAD / H100_NONTENSOR_OPS_PER_S * 1e3
-    entry = dict(name="uniform_rng", route="cuda",
-                 source="ust_run_tpu_torch/csrc/uniform_rng.cu",
-                 replaces="ust_run_tpu/ops/pallas_rng.py:22",
-                 launches=None, max_abs_err=max_err, ms=ms,
-                 plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                 library_ms=lib_ms)
-    print(f"[kernels] uniform_rng bit-equal to plain at (16,256,256) and "
-          f"(3,37,37); min {lo:.3g} max {hi:.9f} mean {mean:.5f} "
-          f"std {std:.5f}; {ms * 1e3:.2f} us/launch (bound "
-          f"{entry['bound_ms'] * 1e3:.2f} us, {entry['bound_by']}), plain "
-          f"{plain_ms:.3f} ms, torch.rand {lib_ms * 1e3:.2f} us | {card}",
-          flush=True)
-    return [entry]
+    kern = lambda: rng.uniform_fields(out, RNG_SEED)          # noqa: E731
+    lib = lambda: torch.rand((n, size, size), device="cuda")  # noqa: E731
+    res = {}
+    for name, fn in (("uniform_rng", kern), ("torch.rand", lib)):
+        dev, per_call = profiled_us(fn, reps)
+        res[name] = dict(device_us=dev, kernels_per_call=per_call,
+                         host_us_per_call=host_us(fn),
+                         back_to_back_us=cuda_ms(fn, reps) * 1e3)
+    return res
 
 
 def fused_inputs(b, h, w, c, co, dtype, seed, w_scale=0.1):
@@ -191,16 +217,122 @@ def fused_inputs(b, h, w, c, co, dtype, seed, w_scale=0.1):
     return tuple(t.to("cuda") for t in (y, inv, shift, wk))
 
 
+def ptxas_report(log):
+    """One line per kernel of an nvcc build log written with -Xptxas -v:
+    the entry's name, its registers, shared memory and spill bytes."""
+    entries, name = {}, None
+    with open(log) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                entries[name] = []
+            elif name and ("Used" in line or "spill" in line
+                           or "stack frame" in line):
+                entries[name].append(line.split(":", 1)[-1].strip())
+    short = {"moments_reduce": "moments_reduce_kernel",
+             "conv_kernelILi64": "tma conv_kernel<BN=64>",
+             "conv_kernelILi128": "tma conv_kernel<BN=128>",
+             "bn_relu_conv3x3_kernelIf": "wmma-route kernel<float>",
+             "bn_relu_conv3x3_kernelI13__nv_bf": "wmma-route kernel<bf16>"}
+    out = []
+    for name, info in entries.items():
+        label = next((v for k, v in short.items() if k in name), name)
+        out.append(f"{label}: " + "; ".join(info))
+    if not out:
+        fail(f"no ptxas report in {log}")
+    return out
+
+
+def phase_kernels(card):
+    import torch
+    from ust_run_tpu_torch.ops import rng
+
+    seed = RNG_SEED
+    for n, size in (RNG_SHAPE, (3, 37)):
+        out = torch.empty((n, size, size), device="cuda")
+        rng.uniform_fields(out, seed)
+        torch.cuda.synchronize()
+        plain = rng.uniform_batch_plain(n, size, seed, device="cuda")
+        if not torch.equal(out, plain):
+            fail(f"uniform_rng differs from its plain version at "
+                 f"{(n, size, size)}: max |d| "
+                 f"{(out - plain).abs().max().item()}")
+    n, size = RNG_SHAPE
+    out = torch.empty((n, size, size), device="cuda")
+    rng.uniform_fields(out, seed)
+    plain = rng.uniform_batch_plain(n, size, seed, device="cuda")
+    max_err = (out - plain).abs().max().item()
+    u = out.double()
+    lo, hi = u.min().item(), u.max().item()
+    mean, std = u.mean().item(), u.std().item()
+    if not (lo >= 0.0 and hi < 1.0 and abs(mean - 0.5) < 0.01
+            and abs(std - 12 ** -0.5) < 0.01):
+        fail(f"uniform_rng statistics: min {lo} max {hi} mean {mean} "
+             f"std {std}")
+    if (u[0] - u[1]).abs().max().item() <= 0.1:
+        fail("uniform_rng fields 0 and 1 do not differ")
+
+    plain_ms = cuda_ms(lambda: rng.uniform_batch_plain(n, size, seed,
+                                                       device="cuda"), 10)
+    nbytes = n * size * size * 4
+    quads = n * ((size * size + 3) // 4)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = quads * PHILOX_OPS_PER_QUAD / H100_NONTENSOR_OPS_PER_S * 1e3
+    entry = dict(name="uniform_rng", route="cuda",
+                 source="ust_run_tpu_torch/csrc/uniform_rng.cu",
+                 replaces="ust_run_tpu/ops/pallas_rng.py:22",
+                 launches=None, max_abs_err=max_err, ms=None,
+                 plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 library_ms=None)
+    print(f"[kernels] uniform_rng bit-equal to plain at (16,256,256) and "
+          f"(3,37,37); min {lo:.3g} max {hi:.9f} mean {mean:.5f} "
+          f"std {std:.5f}; plain {plain_ms:.3f} ms (timed on the device "
+          f"after the last phase) | {card}", flush=True)
+    return [entry]
+
+
+def phase_rng_timing(card, entry):
+    """uniform_rng's and torch.rand's device time per kernel
+    (torch.profiler) apart from the host's cost per call, into `entry`.
+    It runs after every other phase, so that no phase timed before it
+    runs in a process that torch.profiler has traced."""
+    t = time_rng(200)
+    kern, lib = t["uniform_rng"], t["torch.rand"]
+    if round(kern["kernels_per_call"]) != 1:     # the profiler may drop one
+        fail(f"uniform_fields launched {kern['kernels_per_call']} kernels "
+             "per call")
+    entry.update(ms=kern["device_us"] / 1e3,
+                 library_ms=lib["device_us"] / 1e3,
+                 host_us_per_call=kern["host_us_per_call"],
+                 library_host_us_per_call=lib["host_us_per_call"],
+                 back_to_back_us=kern["back_to_back_us"],
+                 library_back_to_back_us=lib["back_to_back_us"],
+                 timing="ms, library_ms: device time per kernel "
+                        "(torch.profiler, 200 launches); host_us_per_call: "
+                        "least over 21 batches of 50 calls, host clock; "
+                        "back_to_back_us: 200 calls between CUDA events")
+    print(f"[rng timing] uniform_rng device {kern['device_us']:.2f} us/kernel "
+          f"(bound {entry['bound_ms'] * 1e3:.2f} us, {entry['bound_by']}), "
+          f"host {kern['host_us_per_call']:.2f} us/call "
+          f"({kern['back_to_back_us']:.2f} back to back); torch.rand device "
+          f"{lib['device_us']:.2f} us, host {lib['host_us_per_call']:.2f} "
+          f"us/call ({lib['back_to_back_us']:.2f}) | {card}", flush=True)
+
+
 def check_fused(args, label):
     """bn_relu_conv3x3 against its plain version on the same inputs, with
     the tolerances of the module docstring. Returns a dict: max |out -
     plain| (`err`), the outputs more than one bf16 ulp off (`past_ulp`, 0
     in f32) and the largest such |d| over max |plain| (`worst`), the
-    moments' largest |d| over their largest magnitude (`m_err`); where the
-    kernel's 8x16 tiles divide the image, what the moments would lose if
-    the tile reduce dropped one tile, for the tile that loses least: its
-    largest loss over the moment's largest magnitude (`drop`) and over the
-    moment bar (`drop_bar`, which must exceed 1)."""
+    moments' largest |d| over their largest magnitude (`m_err`), the
+    library's plan (`geom`: route, tile rows, columns and channels, K
+    chunk), its route's name (`route`) and a summary (`tile`: rows x
+    columns x channels per tile, K chunks); where that route's tiles
+    divide the image, what the moments would lose if the tile reduce
+    dropped one tile, for the tile that loses least: its largest loss over
+    the moment's largest magnitude (`drop`) and over the moment bar
+    (`drop_bar`, which must exceed 1)."""
     import torch
     from ust_run_tpu_torch.ops import fused_conv as fc
     out, m1, m2 = fc.bn_relu_conv3x3(*args)
@@ -218,9 +350,15 @@ def check_fused(args, label):
              f"outputs off the plain version (max |d| {d.max().item()}, "
              f"max |plain| {top.item()})")
     b, h, w, co = p.shape
-    tiled = h % 8 == 0 and w % 16 == 0
+    c = args[0].shape[-1]
+    geom = fc.library_plan(out.dtype, c, co, h, w)
+    th, tw = geom.tile_h, geom.tile_w
+    tiled = h % th == 0 and w % tw == 0
     res = dict(err=d.max().item(), past_ulp=0, worst=0.0, m_err=0.0,
-               drop=None, drop_bar=None)
+               drop=None, drop_bar=None, geom=geom,
+               route=fc.ROUTES[geom.route],
+               tile=f"{th}x{tw}x{geom.tile_n}, {-(-c // geom.tile_k)} K "
+                    f"chunks of {geom.tile_k}")
     drop, drop_bar = [], []
     for name, m, pm, f in (("m1", m1, p1, lambda x: x),
                            ("m2", m2, p2, torch.square)):
@@ -234,7 +372,7 @@ def check_fused(args, label):
         res["m_err"] = max(res["m_err"], dm.max().item() / scale)
         if tiled:
             # each tile's share of the moment, per (sample, tile, channel)
-            lost = f(p).reshape(b, h // 8, 8, w // 16, 16, co) \
+            lost = f(p).reshape(b, h // th, th, w // tw, tw, co) \
                 .sum(dim=(2, 4)).abs() / (h * w)
             drop.append(lost.amax(dim=(0, 3)) / scale)
             drop_bar.append((lost / bar[:, None, None, :]).amax(dim=(0, 3)))
@@ -261,12 +399,24 @@ def phase_fused_conv(card):
     import torch
     from ust_run_tpu_torch.ops import fused_conv as fc
 
-    m_err = 0.0
+    m_err, routes = 0.0, []
+    fc.route_launches[:] = [0, 0]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in FUSED_TEST_SHAPES + [(2, 19, 37, 3, 70)]:
+        for shape in FUSED_TEST_SHAPES + FUSED_EDGE_SHAPES:
             res = check_fused(fused_inputs(*shape, dtype, seed=0),
                               f"{tuple(shape)} {dtype}")
             m_err = max(m_err, res["m_err"])
+            routes.append(f"{tuple(shape)} {str(dtype)[6:]}: "
+                          f"{res['route']} {res['tile']}")
+            if dtype == torch.bfloat16 and shape == FUSED_EDGE_SHAPES[0]:
+                # the TMA route's masks: N tile 128 with a partial second
+                # N tile, several K chunks with a partial last one
+                g = res["geom"]
+                c, co = shape[3:]
+                if (g.route, g.tile_n) != (1, 128) or co % g.tile_n == 0 \
+                        or c <= g.tile_k or c % g.tile_k == 0:
+                    fail(f"{shape} does not meet the TMA route's partial "
+                         f"N tile and K chunk: {g}")
         ones = (torch.ones((1, 16, 16, 8), dtype=dtype, device="cuda"),
                 torch.ones((1, 8), device="cuda"),
                 torch.zeros((1, 8), device="cuda"),
@@ -280,9 +430,15 @@ def phase_fused_conv(card):
                  f"{out[0, 0, 0, 0].item()} edge {out[0, 0, 5, 0].item()} "
                  f"interior {out[0, 5, 5, 0].item()}, want 32/48/72")
     print(f"[kernels] bn_relu_conv3x3 within tolerance of its plain version "
-          f"at {len(FUSED_TEST_SHAPES) + 1} shapes x f32/bf16 (moments "
+          f"at {len(FUSED_TEST_SHAPES) + len(FUSED_EDGE_SHAPES)} shapes x "
+          f"f32/bf16 (moments "
           f"within {m_err:.1e} of their largest magnitude) and exact on "
-          f"the all-ones edge case (4C/6C/9C) | {card}", flush=True)
+          f"the all-ones edge case (4C/6C/9C); routes "
+          + "; ".join(routes) + f"; launches per route "
+          f"{dict(zip(fc.ROUTES, fc.route_launches))} | {card}", flush=True)
+    check_routes = dict(zip(fc.ROUTES, fc.route_launches))
+    if 0 in fc.route_launches:
+        fail(f"a route of bn_relu_conv3x3 never ran: {check_routes}")
 
     inputs = [(label, fused_inputs(b, h, w, c, co, torch.bfloat16, seed=i,
                                    w_scale=0.05))
@@ -302,8 +458,11 @@ def phase_fused_conv(card):
           + " of their largest magnitude, where one tile dropped from the "
           "reduce would read at least "
           + ", ".join(f"{c['drop']:.1e} ({c['drop_bar']:.0f}x the bar)"
-                      for c in checks) + f" | {card}", flush=True)
+                      for c in checks) + " at the route's tiles ("
+          + ", ".join(f"{c['route']} {c['tile']}" for c in checks)
+          + f") | {card}", flush=True)
     fc.launches = 0
+    fc.route_launches[:] = [0, 0]
     rows = []
     for label, args in inputs:
         y, inv, shift, wk = args
@@ -317,7 +476,9 @@ def phase_fused_conv(card):
         flops = 2 * b * h * w * 9 * c * co
         bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
         ops_ms = flops / H100_BF16_FLOPS * 1e3
-        rows.append(dict(shape=label, B=b, H=h, W=w, C=c, Co=co, ms=ms,
+        rows.append(dict(shape=label, B=b, H=h, W=w, C=c, Co=co,
+                         route=fc.ROUTES[fc.library_plan(
+                             y.dtype, c, co, h, w).route], ms=ms,
                          plain_ms=plain_ms, library_ms=chain_ms,
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms
@@ -325,7 +486,7 @@ def phase_fused_conv(card):
                          tflops=flops / ms / 1e9, gbps=nbytes / ms / 1e6))
         r = rows[-1]
         print(f"[kernels] bn_relu_conv3x3 {label} {b}x{h}x{w}x{c}->{co} "
-              f"bf16: {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s, "
+              f"bf16 ({r['route']}): {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s, "
               f"{r['gbps']:.0f} GB/s), bound {r['bound_ms'] * 1e3:.1f} us "
               f"({r['bound_by']}, {r['bound_ms'] / ms:.1%} of it), plain "
               f"{plain_ms:.3f} ms, reference_chain {chain_ms:.3f} ms | "
@@ -333,11 +494,14 @@ def phase_fused_conv(card):
     launches = fc.launches
     if launches == 0:
         fail("bn_relu_conv3x3 was not launched in its microbench")
+    route_launches = dict(zip(fc.ROUTES, fc.route_launches))
     top = rows[0]
     return dict(name="bn_relu_conv3x3", route="cuda",
                 source="ust_run_tpu_torch/csrc/fused_conv.cu",
                 replaces="ust_run_tpu/ops/fused_conv.py:53",
-                launches=launches, max_abs_err=max_err, ms=top["ms"],
+                launches=launches, route_launches=route_launches,
+                check_route_launches=check_routes,
+                max_abs_err=max_err, ms=top["ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], library_ms=top["library_ms"],
                 library="reference_chain: BN+ReLU pass, cuDNN bf16 conv, "
@@ -745,6 +909,8 @@ def main():
         libs = list(pool.map(lambda build: build(), builds))
     print(f"[build] " + ", ".join(os.path.relpath(lib, HERE) for lib in libs)
           + f" in {time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
+    for line in ptxas_report(libs[1] + ".log"):
+        print(f"[build] fused_conv.cu ptxas: {line}", flush=True)
 
     set_numerics()
     kernels = phase_kernels(card) + [phase_fused_conv(card)]
@@ -760,6 +926,7 @@ def main():
         phase_busi(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    phase_rng_timing(card, kernels[0])
     for k in kernels:
         if k["name"] == "uniform_rng":
             k["launches"] = launches["uniform_rng"]

@@ -108,3 +108,24 @@ def test_wrapper_checks_and_cpu_path():
     with pytest.raises(ValueError, match="unsupported device"):
         fc.bn_relu_conv3x3(y.to("meta"), inv.to("meta"), shift.to("meta"),
                            wk.to("meta"))
+
+
+# (dtype, C, Co, H, W) -> (route, tile rows, columns, channels, K chunk,
+# tiles per sample), worked out by hand from csrc/fused_conv.cu's rule
+@pytest.mark.parametrize("dtype,c,co,h,w,want", [
+    (torch.bfloat16, 64, 64, 256, 256, (1, 16, 16, 64, 64, 256)),
+    (torch.bfloat16, 256, 256, 64, 64, (1, 16, 16, 128, 64, 16)),
+    (torch.bfloat16, 136, 200, 40, 50, (1, 16, 16, 128, 64, 12)),
+    (torch.bfloat16, 64, 72, 19, 37, (1, 16, 16, 128, 64, 6)),
+    (torch.bfloat16, 8, 8, 16, 16, (1, 16, 16, 64, 64, 1)),
+    (torch.bfloat16, 3, 70, 19, 37, (0, 8, 16, 64, 32, 9)),
+    (torch.bfloat16, 64, 70, 19, 37, (0, 8, 16, 64, 32, 9)),
+    (torch.bfloat16, 12, 64, 32, 24, (0, 8, 16, 64, 32, 8)),
+    (torch.float32, 64, 64, 256, 256, (0, 8, 16, 64, 16, 512)),
+    (torch.float32, 3, 70, 19, 37, (0, 8, 16, 64, 16, 9))])
+def test_plan_routes_by_shape(dtype, c, co, h, w, want):
+    """The TMA route takes bf16 with 16-byte channel rows (C and Co
+    multiples of 8), N tile 64 up to Co = 64 and 128 above; everything
+    else, f32 included, takes the WMMA route. `tiles` sizes the moment
+    scratch (2, B, tiles, Co): ceil(H / rows) * ceil(W / columns)."""
+    assert tuple(fc.plan(dtype, c, co, h, w)) == want

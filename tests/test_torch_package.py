@@ -174,34 +174,60 @@ def test_uniform_kernel_bit_equal_on_card():
         assert torch.equal(out, plain)
 
 
+def _fused_inputs_on_card(b, h, w, c, co, dtype, rng):
+    y, inv, shift, wk = (torch.from_numpy(a.astype(np.float32)).cuda()
+                         for a in (rng.normal(size=(b, h, w, c)),
+                                   rng.uniform(0.5, 1.5, (b, c)),
+                                   rng.normal(size=(b, c)) * 0.3,
+                                   rng.normal(size=(3, 3, c, co)) * 0.1))
+    return y.to(dtype), inv, shift, wk
+
+
+def _fused_launch_on_card(fc, args, want):
+    """One launch through the wrapper: the library's plan is `want` (route,
+    N tile, K chunk), the launch counts once in all and once on its
+    route; returns the kernel's (out, m1, m2) and the plain version's."""
+    y, _, _, wk = args
+    b, h, w, c = y.shape
+    geom = fc.library_plan(y.dtype, c, wk.shape[-1], h, w)
+    assert (geom.route, geom.tile_n, geom.tile_k) == want
+    before, on_route = fc.launches, fc.route_launches[geom.route]
+    got = fc.bn_relu_conv3x3(*args)
+    torch.cuda.synchronize()
+    assert fc.launches == before + 1
+    assert fc.route_launches[geom.route] == on_route + 1
+    return got, fc.bn_relu_conv3x3_plain(*args)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_conv_kernel_matches_plain_on_card(dtype):
     """On a card: the bn_relu_conv3x3 kernel against its plain version
-    (TF32 off) at the JAX test shapes; f32 to 1e-4 (accumulation order
-    over K up to 576), bf16 `out` within one bf16 ulp, moments to rtol
-    1e-5 plus 1e-5 of their largest magnitude (the f32 summation order of
-    the tile reduce; these shapes have 2-8 tiles per sample, so a tile
-    dropped from the reduce moves a moment by a tenth or more)."""
+    (TF32 off) at the JAX test shapes and a ragged one (C = 3, Co = 70);
+    f32 to 1e-4 (accumulation order over K up to 576), bf16 `out` within
+    one bf16 ulp, moments to rtol 1e-5 plus 1e-5 of their largest
+    magnitude (the f32 summation order of the tile reduce; these shapes
+    have 1-8 tiles per sample, so a tile dropped from the reduce moves a
+    moment by a tenth or more). In bf16, the first three shapes take the
+    TMA + wgmma route and (2, 19, 37, 3, 70) the WMMA route; f32 takes
+    the WMMA route everywhere. The library's plan is checked against
+    `plan` and each launch counts on its route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     from ust_run_tpu_torch.ops import fused_conv as fc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(0)
-    for b, h, w, c, co in [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8),
-                           (1, 16, 16, 64, 16)]:
-        y, inv, shift, wk = (torch.from_numpy(a.astype(np.float32)).cuda()
-                             for a in (rng.normal(size=(b, h, w, c)),
-                                       rng.uniform(0.5, 1.5, (b, c)),
-                                       rng.normal(size=(b, c)) * 0.3,
-                                       rng.normal(size=(3, 3, c, co)) * 0.1))
-        y = y.to(dtype)
-        before = fc.launches
-        out, m1, m2 = fc.bn_relu_conv3x3(y, inv, shift, wk)
-        torch.cuda.synchronize()
-        assert fc.launches == before + 1
-        p_out, p1, p2 = fc.bn_relu_conv3x3_plain(y, inv, shift, wk)
+    bf16 = dtype == torch.bfloat16
+    for shape, want in [((2, 16, 16, 8, 8), (1, 64, 64)),
+                        ((1, 32, 24, 16, 8), (1, 64, 64)),
+                        ((1, 16, 16, 64, 16), (1, 64, 64)),
+                        ((2, 19, 37, 3, 70), (0, 64, 32))]:
+        if not bf16:
+            want = (0, 64, 16)
+        args = _fused_inputs_on_card(*shape, dtype, rng)
+        (out, m1, m2), (p_out, p1, p2) = _fused_launch_on_card(fc, args,
+                                                               want)
         if dtype == torch.float32:
             torch.testing.assert_close(out, p_out, rtol=1e-4, atol=1e-4)
         else:
@@ -211,3 +237,30 @@ def test_fused_conv_kernel_matches_plain_on_card(dtype):
         for m, p in ((m1, p1), (m2, p2)):
             torch.testing.assert_close(m, p, rtol=1e-5,
                                        atol=1e-5 * p.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", [
+    ((2, 40, 50, 136, 200), (1, 128, 64)),
+    ((2, 19, 37, 64, 72), (1, 128, 64))])
+def test_fused_conv_tma_masks_on_card(shape, want):
+    """On a card, bf16: the TMA route where its masks matter. Both shapes
+    have ragged image edges and N tile 128 with a partial last N tile
+    (200 = 128 + 72, 72 = 64 + 8); the first also has three K chunks, the
+    last of 8 channels (TMA's zero fill past C). `out` within one bf16 ulp
+    plus 1e-5 of max |plain| (K = 9 x 136 = 1224 terms: near-cancelling
+    sums let the f32 order move the rounding), moments to rtol 1e-5 plus
+    1e-5 of their largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from ust_run_tpu_torch.ops import fused_conv as fc
+
+    args = _fused_inputs_on_card(*shape, torch.bfloat16,
+                                 np.random.RandomState(1))
+    (out, m1, m2), (p_out, p1, p2) = _fused_launch_on_card(fc, args, want)
+    p = p_out.float()
+    bar = torch.finfo(torch.bfloat16).eps * p.abs() + 1e-5 * p.abs().max()
+    assert bool(((out.float() - p).abs() <= bar).all())
+    for m, pm in ((m1, p1), (m2, p2)):
+        torch.testing.assert_close(m, pm, rtol=1e-5,
+                                   atol=1e-5 * pm.abs().max().item())

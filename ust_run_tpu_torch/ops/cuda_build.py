@@ -2,7 +2,9 @@
 
 Each library is one `.cu` file under `ust_run_tpu_torch/csrc/` with a
 plain C interface, compiled by nvcc for sm_90a through
-`utils/native_build.py` (hashed name under `ust_run_tpu_torch/_build/`).
+`utils/native_build.py` (hashed name under `ust_run_tpu_torch/_build/`;
+ptxas's register, shared-memory and spill report per kernel, from
+`-Xptxas -v`, in `<library>.log` beside it).
 """
 
 import ctypes
@@ -14,7 +16,7 @@ from ust_run_tpu_torch.utils import native_build
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded = {}
 

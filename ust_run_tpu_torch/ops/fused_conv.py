@@ -5,9 +5,13 @@
     m1, m2 = per-sample mean and mean-square of the f32 accumulator
 
 `bn_relu_conv3x3` launches the hand-written CUDA kernel
-(csrc/fused_conv.cu: implicit GEMM, WMMA bf16 or f32 FMA, deterministic
-two-pass moments) for CUDA tensors and uses `bn_relu_conv3x3_plain`, the
-same arithmetic step by step in PyTorch, only for CPU tensors.
+(csrc/fused_conv.cu, deterministic two-pass moments) for CUDA tensors and
+uses `bn_relu_conv3x3_plain`, the same arithmetic step by step in
+PyTorch, only for CPU tensors. The library has two routes, picked by
+shape before the launch (`plan`): "tma_wgmma" (bf16 with C and Co
+multiples of 8: TMA loads, an mbarrier ring, wgmma, 16x16-pixel tiles)
+and "wmma" (f32, and bf16 at other channel counts: synchronous loads,
+WMMA or f32 FMA, 8x16-pixel tiles).
 `reference_chain` is the counterpart of `xla_reference_chain`: the op
 chain the kernel replaces (BN+ReLU in y's dtype, a library convolution,
 moments of the rounded output), for tests and as the timing yardstick.
@@ -23,15 +27,48 @@ tests and the microbench phase of chip_smoke.py.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-# Kernel launches made by `bn_relu_conv3x3` (a plain count, reset by callers
-# that want to show a run went through the kernel).
+# Kernel launches made by `bn_relu_conv3x3` (plain counts, reset by callers
+# that want to show a run went through the kernel): in all, and per route.
 launches = 0
+route_launches = [0, 0]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wmma", "tma_wgmma")
+# output rows and columns of one tile, per route (csrc/fused_conv.cu)
+TILES = ((8, 16), (16, 16))
+
+
+class Plan(NamedTuple):
+    """The geometry of one launch: its route, the output rows, columns and
+    channels of a tile, the input channels of one K chunk, and the tiles
+    per sample (the moment scratch holds one slot per tile)."""
+    route: int
+    tile_h: int
+    tile_w: int
+    tile_n: int
+    tile_k: int
+    tiles: int
+
+
+def plan(dtype, c, co, h, w):
+    """The library's launch rule, which the wrapper checks against the
+    library on the card. Route 1 (TMA + wgmma) needs bf16 and 16-byte row
+    strides for its tensor maps (C and Co multiples of 8); it takes 64
+    channels per K chunk and 64 output channels per tile where Co <= 64,
+    else 128. Route 0 takes the rest, 64 output channels per tile and 32
+    (bf16) or 16 (f32) per K chunk."""
+    route = int(dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0)
+    th, tw = TILES[route]
+    if route == 1:
+        tn, tk = (64 if co <= 64 else 128), 64
+    else:
+        tn, tk = 64, (32 if dtype == torch.bfloat16 else 16)
+    return Plan(route, th, tw, tn, tk, -(-h // th) * -(-w // tw))
 
 
 def _bn_relu(y, inv_n, shift_n):
@@ -85,8 +122,11 @@ def _lib():
     """The ctypes functions of csrc/fused_conv.cu, built at first use."""
     from ust_run_tpu_torch.ops import cuda_build
     lib = cuda_build.load("fused_conv")
-    lib.bn_relu_conv3x3_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.bn_relu_conv3x3_tiles.restype = ctypes.c_int
+    for name, n_args in (("route", 3), ("tile_h", 1), ("tile_w", 1),
+                         ("tile_n", 2), ("tile_k", 2), ("tiles", 3)):
+        fn = getattr(lib, "bn_relu_conv3x3_" + name)
+        fn.argtypes = [ctypes.c_int] * n_args
+        fn.restype = ctypes.c_int
     fn = lib.bn_relu_conv3x3_launch
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -110,6 +150,24 @@ def _check(y, inv_n, shift_n, w):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+@functools.lru_cache(maxsize=None)
+def library_plan(dtype, c, co, h, w):
+    """`plan` as the built library answers it; raises where the two
+    disagree."""
+    lib = _lib()
+    route = lib.bn_relu_conv3x3_route(_DTYPES[dtype], c, co)
+    answer = Plan(route, lib.bn_relu_conv3x3_tile_h(route),
+                  lib.bn_relu_conv3x3_tile_w(route),
+                  lib.bn_relu_conv3x3_tile_n(route, co),
+                  lib.bn_relu_conv3x3_tile_k(_DTYPES[dtype], route),
+                  lib.bn_relu_conv3x3_tiles(route, h, w))
+    if answer != plan(dtype, c, co, h, w):
+        raise RuntimeError(f"fused_conv library plans {answer} for "
+                           f"{(dtype, c, co, h, w)}, ops/fused_conv.py "
+                           f"{plan(dtype, c, co, h, w)}")
+    return answer
+
+
 def bn_relu_conv3x3(y, inv_n, shift_n, w):
     """(out, m1, m2) of the fused op. A CUDA tensor goes through the
     kernel (which raises if it does not build or launch); a CPU tensor
@@ -122,18 +180,25 @@ def bn_relu_conv3x3(y, inv_n, shift_n, w):
         raise ValueError(f"unsupported device {y.device}")
     B, H, W, C = y.shape
     co = w.shape[-1]
-    if B > 65535:
+    geom = library_plan(y.dtype, C, co, H, W)
+    route = geom.route
+    if route == 0 and B > 65535:
         raise ValueError(f"at most 65535 samples per launch, got {B}")
     y = y.contiguous()
+    if route == 1:
+        # tensor maps need 16-byte-aligned bases; w goes K-major (9, Co, C)
+        if y.data_ptr() % 16:
+            y = y.clone()
+        wk = w.to(y.dtype).reshape(9, C, co).transpose(1, 2).contiguous()
+    else:
+        wk = w.to(y.dtype).reshape(9, C, co).contiguous()
     inv_n = inv_n.contiguous()
     shift_n = shift_n.contiguous()
-    wk = w.to(y.dtype).reshape(9, C, co).contiguous()
-    lib = _lib()
-    tiles = lib.bn_relu_conv3x3_tiles(H, W)
     out = torch.empty((B, H, W, co), dtype=y.dtype, device=y.device)
     m = torch.empty((2, B, co), dtype=torch.float32, device=y.device)
-    part = torch.empty((2, B, tiles, co), dtype=torch.float32,
+    part = torch.empty((2, B, geom.tiles, co), dtype=torch.float32,
                        device=y.device)
+    lib = _lib()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = lib.bn_relu_conv3x3_launch(
@@ -144,4 +209,5 @@ def bn_relu_conv3x3(y, inv_n, shift_n, w):
     if err != 0:
         raise RuntimeError(f"bn_relu_conv3x3_launch failed: CUDA error {err}")
     launches += 1
+    route_launches[route] += 1
     return out, m[0], m[1]

@@ -30,5 +30,7 @@ def build(compiler, flags, src, stem):
     if out.returncode != 0:
         raise RuntimeError(f"{os.path.basename(compiler)} failed for {src}:"
                            f"\n{out.stdout}\n{out.stderr}")
+    with open(f"{lib}.log", "w") as f:
+        f.write(out.stdout + out.stderr)
     os.replace(tmp, lib)
     return lib
