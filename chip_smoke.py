@@ -13,7 +13,7 @@ Phases, one line each (or a few); any failure exits non-zero:
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar (its timing is phase 9);
+       ragged one, and the statistical bar (its timing is phase 13);
      - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
        (ragged image edges, a partial last K chunk with C > 64, a partial
        N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
@@ -45,7 +45,8 @@ Phases, one line each (or a few); any failure exits non-zero:
      under torch.profiler: wall and device-kernel ms per step, the
      device's busy share, kernel launches per step, the host's time
      blocked in synchronising CUDA calls, the top operators by device
-     time and the convolutions' FLOPs; written to FILE as JSON;
+     time and the convolutions' FLOPs; written to FILE as JSON (and the
+     same for the zoo path of phase 10, to FILE's stem + `_zoo.json`);
   7. evaluation, on the same trainer: after one untimed warm-up pass, the
      EMA and student models timed over the synthetic fundus test split
      (32 images) at full width, every per-domain dice in [0, 1] and dc,
@@ -56,12 +57,33 @@ Phases, one line each (or a few); any failure exits non-zero:
      `python -m ust_run_tpu_torch.test` on the saved best model;
   8. BUSI: the softmax profile at full width (1x256^2, batch 4+4): 3
      steps with every loss finite, then one evaluation of both models;
-  9. RNG timing: the uniform-field RNG's and torch.rand's device time
+  9. zoo reference: DeepLabV2 on the dilated ResNet-101, train forward
+     and head gradients on the card against the same module on the CPU
+     (float32, TF32 off) at a small input, phase 4's bar of 1e-3 taken
+     as a share of the largest magnitude for the forward too;
+ 10. zoo path: `--model deeplabv2` (ResNet-101, output stride 8) through
+     the trainer on the fundus corpus at full width, float32: a seeded
+     torchvision-layout `resnet101.pth` as `--pretrained_root` (the
+     overlay's log line; both backbones equal the file), 3 warm-up and
+     10 timed steps (timed ones under the sync debug mode), every loss
+     finite, the RNG kernel once per step; then one evaluation of both
+     models, a checkpoint resumed with --load (state equal), and
+     `python -m ust_run_tpu_torch.test --model deeplabv2 --save_img`
+     (one overlay PNG per test image);
+ 11. zoo, short: 3 steps each, every loss finite, of `deeplabv2_r50` and
+     `unet2d` on fundus and `unet2d` on BUSI;
+ 12. prostate and MNMS: the RNG kernel bit-equal at their field shapes
+     (16,384,384) and (16,288,288); the UNet at full width on prostate
+     (1x384^2) for 3 steps and one evaluation of both models, and on
+     MNMS (1x288^2, 4 classes) through the `train_mnms` entry for 3
+     steps and its epoch-end evaluation and checkpoint;
+ 13. RNG timing: the uniform-field RNG's and torch.rand's device time
      per kernel (torch.profiler) apart from the host's cost per call
      (host clock). Last, so that no phase timed before it runs in a
      process that torch.profiler has traced.
-Then a JSON line with the kernels' numbers, the card line again, and
-`{"ok": true, "device": {...}}` as the last line.
+Each phase prints its wall time. Then a JSON line with the kernels'
+numbers, the card line again, and `{"ok": true, "device": {...}}` as the
+last line.
 
 Synthetic data, the trainer's log and the kernel build stay inside the
 checkout (`_smoke/`, `ust_run_tpu_torch/_build/`); `_smoke/` is removed
@@ -90,7 +112,11 @@ H100_BF16_FLOPS = 989e12          # dense bf16 tensor cores, data sheet
 MOMENT_RTOL = 1e-5                # bn_relu_conv3x3 moments: rtol, and atol
 #                                   as a share of the largest magnitude
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS, BUSI_STEPS = 3, 10, 5, 3
+SHORT_STEPS = 3                   # zoo short, prostate and MNMS phases
 N_TEST = 8                        # synthetic test images per domain
+LOSSES = ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
+          "unsup_loss_s")
+RESNET101 = (3, 4, 23, 3)
 FUSED_TEST_SHAPES = [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8),
                      (1, 16, 16, 64, 16)]        # tests/test_fused_conv.py
 # (B, H, W, C, Co) the TMA route's masks meet: ragged image edges, a
@@ -511,13 +537,15 @@ def phase_fused_conv(card):
                 shapes=rows)
 
 
-def phase_reference(card):
-    """The UNet's train forward + backward on the card against the CPU."""
+def card_vs_cpu(make, grad_keys):
+    """A model from `make()` (weights drawn from seed 1) in train mode on
+    the CPU and, with the same weights, on the card, channels_last: the
+    forward of a 6x64^2x3 input in 3 BN groups and the gradients of a
+    fixed random projection of it. Returns (max |forward difference|, max
+    |CPU forward|, the largest max |d|/max |g| over `grad_keys`)."""
     import torch
-    from ust_run_tpu_torch.models import UNet
-
-    net_cpu = UNet(3, 2).init_weights_(torch.Generator().manual_seed(1))
-    net_gpu = UNet(3, 2).to("cuda").to(memory_format=torch.channels_last)
+    net_cpu = make().init_weights_(torch.Generator().manual_seed(1))
+    net_gpu = make().to("cuda", memory_format=torch.channels_last)
     net_gpu.load_state_dict(net_cpu.state_dict())
     x = torch.rand((6, 64, 64, 3), generator=torch.Generator()
                    .manual_seed(2)) * 2 - 1
@@ -530,13 +558,22 @@ def phase_reference(card):
         (y * r.to(dev)).sum().backward()
         outs.append((y.detach().cpu(), {k: p.grad.cpu() for k, p in
                                         net.named_parameters()}))
-    fwd_err = (outs[0][0] - outs[1][0]).abs().max().item()
+    grad_err = max(((outs[1][1][k] - outs[0][1][k]).abs().max()
+                    / outs[0][1][k].abs().max().clamp_min(1e-12)).item()
+                   for k in grad_keys)
+    return ((outs[0][0] - outs[1][0]).abs().max().item(),
+            outs[0][0].abs().max().item(), grad_err)
+
+
+def phase_reference(card):
+    """The UNet's train forward + backward on the card against the CPU."""
+    from ust_run_tpu_torch.models import UNet
+
     # the out conv's gradients sit behind no ReLU or max-pool decision, so
     # float32 rounding cannot flip them (deeper gradients can jump at a
     # ReLU input within rounding of 0; the CPU tests pin those)
-    grad_err = max(((outs[1][1][k] - outs[0][1][k]).abs().max()
-                    / outs[0][1][k].abs().max().clamp_min(1e-12)).item()
-                   for k in ("outc.conv.weight", "outc.conv.bias"))
+    fwd_err, _, grad_err = card_vs_cpu(lambda: UNet(3, 2),
+                                       ("outc.conv.weight", "outc.conv.bias"))
     if not (fwd_err < 1e-3 and grad_err < 1e-3):
         fail(f"card vs CPU UNet: forward {fwd_err}, grads {grad_err}")
     print(f"[reference] UNet (6x64^2x3, 3 BN groups, f32, TF32 off) card "
@@ -545,11 +582,8 @@ def phase_reference(card):
 
 
 def phase_main_path(card, work, profile_out=None):
-    import numpy as np
     import torch
-    from ust_run_tpu_torch.config import build_parser, config_from_args
     from ust_run_tpu_torch.data.synthetic import generate
-    from ust_run_tpu_torch.engine.trainer import Trainer
     from ust_run_tpu_torch.ops import augment, fused_conv, rng
 
     root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
@@ -567,11 +601,8 @@ def phase_main_path(card, work, profile_out=None):
     if black >= 0.5:
         fail(f"weak augmentation blanked a sample ({black:.3f} black)")
 
-    argv = ["--dataset", "fundus", "--data_root", root, "--lb_domain", "1",
-            "--lb_num", "4", "--save_name", "smoke", "--overwrite",
-            "--model_root", os.path.join(work, "model"), "--device", "cuda"]
-    cfg = config_from_args(build_parser().parse_args(argv)).resolve()
-    trainer = Trainer(cfg, snapshot_dir(cfg))
+    argv = train_argv("fundus", root, work, "smoke")
+    trainer, cfg = make_trainer(argv)
     p = cfg.profile()
     width = trainer.state.student.inc.double_conv[0].out_channels
     deepest = trainer.state.student.down4.maxpool_conv[1] \
@@ -581,32 +612,14 @@ def phase_main_path(card, work, profile_out=None):
         fail("main path is not the full-width fundus configuration")
 
     rng.launches = fused_conv.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    metrics = trainer.train_steps(WARMUP_STEPS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    # any host-device synchronisation inside the step raises here; the
-    # trainer's metric fetch waits on a recorded event, which is not one
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        metrics += trainer.train_steps(TIMED_STEPS)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, TIMED_STEPS)
     launches = {"uniform_rng": rng.launches,
                 "bn_relu_conv3x3": fused_conv.launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     steps = WARMUP_STEPS + TIMED_STEPS
     if len(metrics) != steps:
         fail(f"{len(metrics)} metric rows for {steps} steps")
-    for i, m in enumerate(metrics):
-        for k in ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
-                  "unsup_loss_s"):
-            if not np.isfinite(float(m[k])):
-                fail(f"step {i + 1}: {k} = {m[k]}")
+    check_losses(metrics, "fundus")
     if launches["uniform_rng"] != steps:
         fail(f"uniform_rng launched {launches['uniform_rng']} times in "
              f"{steps} steps")
@@ -647,13 +660,11 @@ def check_eval(res, label, n_part):
                  f"dice/dc/jc/hd95/asd {m.tolist()}")
 
 
-def phase_eval(card, trainer, argv, work):
+def phase_eval(card, trainer, argv):
     """Evaluation, checkpoint, --load round trip and the standalone
     evaluator on the main path's trainer."""
     import numpy as np
     import torch
-    from ust_run_tpu_torch.config import build_parser, config_from_args
-    from ust_run_tpu_torch.engine.trainer import Trainer
 
     n_part = trainer.profile_.n_part
     n_img = sum(len(ld.ds) for ld in trainer.evaluator.loaders)
@@ -685,8 +696,38 @@ def phase_eval(card, trainer, argv, work):
     for f in ("checkpoint.pth", "unet_avg_dice_best_model.pth"):
         if not os.path.exists(os.path.join(snap, f)):
             fail(f"no {f} in {snap}")
-    cfg = config_from_args(build_parser().parse_args(argv + ["--load"]))
-    resumed = Trainer(cfg.resolve(), snap)
+    resumed, cfg = make_trainer(argv + ["--load"])
+    b = resumed.state
+    n_pairs = check_resumed(trainer, resumed)
+    worst = 0.0
+    for name, model in (("ema", b.teacher), ("stu", b.student)):
+        again = resumed.evaluator.evaluate(model, 1, ema=name == "ema")
+        worst = max(worst, float(np.abs(again["metrics"]
+                                        - res[name]["metrics"]).max()),
+                    abs(again["loss"] - res[name]["loss"]))
+    if worst > 1e-6:
+        fail(f"the resumed trainer's evaluation differs by {worst}")
+    resumed.close()
+    trainer.close()
+    mib = os.path.getsize(os.path.join(snap, "checkpoint.pth")) / 2 ** 20
+    print(f"[eval] checkpoint written ({mib:.0f} MiB) and resumed with "
+          f"--load: {n_pairs} tensors equal, epoch {resumed.start_epoch}, "
+          f"step "
+          f"{b.step}; evaluation reproduced within {worst:.1e} | {card}",
+          flush=True)
+
+    loss, secs = run_test_entry(cfg)
+    print(f"[eval] python -m ust_run_tpu_torch.test on the best model: "
+          f"rc 0, overall loss {loss:.4f}, {secs:.1f} s in all | {card}",
+          flush=True)
+
+
+def check_resumed(trainer, resumed):
+    """Fails unless the --load trainer `resumed` holds `trainer`'s saved
+    state: both models' state_dicts, the queue, the SGD momentum, the
+    threshold, the step and the next epoch. Returns the tensors
+    compared."""
+    import torch
     a, b = trainer.state, resumed.state
     pairs = [(f"student.{k}", v, b.student.state_dict()[k])
              for k, v in a.student.state_dict().items()]
@@ -702,30 +743,22 @@ def phase_eval(card, trainer, argv, work):
     if diff or (resumed.start_epoch, b.step) != (1, a.step):
         fail(f"--load did not restore the state: {diff[:5]}, start epoch "
              f"{resumed.start_epoch}, step {b.step} vs {a.step}")
-    worst = 0.0
-    for name, model in (("ema", b.teacher), ("stu", b.student)):
-        again = resumed.evaluator.evaluate(model, 1, ema=name == "ema")
-        worst = max(worst, float(np.abs(again["metrics"]
-                                        - res[name]["metrics"]).max()),
-                    abs(again["loss"] - res[name]["loss"]))
-    if worst > 1e-6:
-        fail(f"the resumed trainer's evaluation differs by {worst}")
-    resumed.close()
-    trainer.close()
-    mib = os.path.getsize(os.path.join(snap, "checkpoint.pth")) / 2 ** 20
-    print(f"[eval] checkpoint written ({mib:.0f} MiB) and resumed with "
-          f"--load: {len(pairs)} tensors equal, epoch {resumed.start_epoch}, "
-          f"step "
-          f"{b.step}; evaluation reproduced within {worst:.1e} | {card}",
-          flush=True)
+    return len(pairs)
 
+
+def run_test_entry(cfg, extra=()):
+    """`python -m ust_run_tpu_torch.test` on cfg's snapshot, in a fresh
+    process on cfg's device (4 domains); fails unless it exits 0 with a
+    finite overall loss. Returns (loss, seconds)."""
+    import numpy as np
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "ust_run_tpu_torch.test", "--dataset",
-         "fundus", "--data_root", cfg.data_root, "--model_root",
-         cfg.model_root, "--save_name", cfg.save_name, "--domain_num", "4",
-         "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
-        timeout=600, env={**os.environ, "PYTHONPATH": HERE})
+         cfg.dataset, "--model", cfg.model, "--data_root", cfg.data_root,
+         "--model_root", cfg.model_root, "--save_name", cfg.save_name,
+         "--domain_num", "4", "--device", cfg.device, *extra], cwd=HERE,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": HERE})
     overall = [ln for ln in proc.stdout.splitlines()
                if "epoch 1 : loss" in ln and "domain" not in ln]
     if proc.returncode != 0 or not overall:
@@ -734,45 +767,26 @@ def phase_eval(card, trainer, argv, work):
     loss = float(overall[-1].split("loss : ")[1].split()[0])
     if not np.isfinite(loss):
         fail(f"python -m ust_run_tpu_torch.test: loss {loss}")
-    print(f"[eval] python -m ust_run_tpu_torch.test on the best model: "
-          f"rc 0, overall loss {loss:.4f}, {time.perf_counter() - t0:.1f} s "
-          f"in all | {card}", flush=True)
+    return loss, time.perf_counter() - t0
 
 
 def phase_busi(card, work):
     """The softmax profile on the card: BUSI_STEPS steps at full width,
     then one evaluation of both models."""
-    import numpy as np
     import torch
-    from ust_run_tpu_torch.config import build_parser, config_from_args
     from ust_run_tpu_torch.data.synthetic import generate
-    from ust_run_tpu_torch.engine.trainer import Trainer
 
     root = generate("BUSI", os.path.join(work, "busi"), n_train=8,
                     n_test=2, size=256, seed=1)
-    argv = ["--dataset", "BUSI", "--data_root", root, "--lb_domain", "1",
-            "--lb_num", "4", "--save_name", "busi", "--overwrite",
-            "--model_root", os.path.join(work, "model"), "--device", "cuda"]
-    cfg = config_from_args(build_parser().parse_args(argv)).resolve()
-    trainer = Trainer(cfg, snapshot_dir(cfg))
+    trainer, cfg = make_trainer(train_argv("BUSI", root, work, "busi"))
     p = cfg.profile()
     if (p.patch_size, p.num_channels, p.num_classes, p.multilabel,
             cfg.label_bs, cfg.unlabel_bs) != (256, 1, 2, False, 4, 4):
         fail("BUSI phase is not the full-width softmax configuration")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, metrics = [], []
-    for _ in range(BUSI_STEPS):
-        t0 = time.perf_counter()
-        metrics += trainer.train_steps(1)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    for i, m in enumerate(metrics):
-        for k in ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
-                  "unsup_loss_s"):
-            if not np.isfinite(float(m[k])):
-                fail(f"BUSI step {i + 1}: {k} = {m[k]}")
+    times, metrics, peak_gib = steps_one_by_one(trainer, BUSI_STEPS)
+    check_losses(metrics, "BUSI")
     res = {name: trainer.evaluator.evaluate(model, 1, ema=name == "ema")
            for name, model in (("ema", trainer.state.teacher),
                                ("stu", trainer.state.student))}
@@ -788,6 +802,382 @@ def phase_busi(card, work):
           f"{res['ema']['metrics'][3][0]:.2f}, student dice "
           f"{res['stu']['metrics'][0][0]:.4f}; all finite | {card}",
           flush=True)
+
+
+def train_argv(dataset, root, work, save_name, *extra):
+    """The trainer's flags for a phase: lb_domain 1, 4 labelled images,
+    full width, on the card."""
+    return ["--dataset", dataset, "--data_root", root, "--lb_domain", "1",
+            "--lb_num", "4", "--save_name", save_name, "--overwrite",
+            "--model_root", os.path.join(work, "model"), "--device", "cuda",
+            *extra]
+
+
+def make_trainer(argv):
+    from ust_run_tpu_torch.config import build_parser, config_from_args
+    from ust_run_tpu_torch.engine.trainer import Trainer
+    cfg = config_from_args(build_parser().parse_args(argv)).resolve()
+    return Trainer(cfg, snapshot_dir(cfg)), cfg
+
+
+def check_losses(metrics, label):
+    import numpy as np
+    for i, m in enumerate(metrics):
+        for k in LOSSES:
+            if not np.isfinite(float(m[k])):
+                fail(f"{label} step {i + 1}: {k} = {m[k]}")
+
+
+def free_card():
+    """Drop what the last phase left, so that each phase's peak is its
+    own."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+class LogRecords:
+    """Collects the root logger's INFO records while in a `with`."""
+
+    def __enter__(self):
+        import logging
+        self.messages = []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+        root = logging.getLogger()
+        self.level = root.level
+        root.setLevel(logging.INFO)
+        root.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        root = logging.getLogger()
+        root.removeHandler(self.handler)
+        root.setLevel(self.level)
+
+
+def phase_zoo_reference(card):
+    """DeepLabV2 (ResNet-101) train forward + backward on the card against
+    the CPU, at the bar of phase_reference."""
+    from ust_run_tpu_torch.models import DeepLabV2
+
+    # phase_reference's bar of 1e-3, as a share of the largest magnitude:
+    # at init, with BN scales of 1, each of the 33 residual blocks adds a
+    # branch as large as its input, and a float32 rounding difference
+    # grows along the depth (the CPU parity tests see 1.3e-4 of the
+    # logits between the JAX package's own jitted and eager forwards at
+    # ResNet-50); the head's gradients sit behind no ReLU decision of
+    # their own
+    fwd_abs, top, grad_err = card_vs_cpu(
+        lambda: DeepLabV2("resnet101", 2),
+        ("classifier.0.weight", "classifier.0.bias", "classifier.3.weight",
+         "classifier.3.bias"))
+    fwd_err = fwd_abs / top
+    if not (fwd_err < 1e-3 and grad_err < 1e-3):
+        fail(f"card vs CPU DeepLabV2-R101: forward max |d|/max|y| "
+             f"{fwd_err} (max |y| {top}), head grads {grad_err}")
+    print(f"[zoo reference] DeepLabV2-ResNet-101 (6x64^2x3, 3 BN groups, "
+          f"f32, TF32 off) card vs CPU: forward max |d|/max|y| "
+          f"{fwd_err:.2e} (max |y| {top:.3g}), head gradients max "
+          f"|d|/max|g| {grad_err:.2e} | {card}", flush=True)
+
+
+def seeded_backbone_file(path, layers, seed):
+    """A torchvision-layout ImageNet file from a seeded port ResNet:
+    kaiming-normal convolutions, BN affine and running statistics drawn
+    too, an `fc` head and no num_batches_tracked (torchvision's files
+    predate it). Returns its tensors."""
+    import torch
+    from ust_run_tpu_torch.models import ResNet
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in ResNet(layers).init_weights_(g).state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if v.dim() == 1 and k.endswith(("weight", "running_var")):
+            v = torch.rand(v.shape, generator=g) + 0.5
+        elif v.dim() == 1:
+            v = torch.randn(v.shape, generator=g) * 0.1
+        sd[k] = v
+    sd["fc.weight"] = torch.randn((1000, 2048), generator=g) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+    return sd
+
+
+def phase_zoo_path(card, work, profile_out=None):
+    """--model deeplabv2 (ResNet-101) at full width through the trainer:
+    the ImageNet overlay, the timed steps, evaluation, checkpoint and
+    resume, and the standalone evaluator with --save_img. Returns the RNG
+    kernel's launches in the steps."""
+    import torch
+    from ust_run_tpu_torch.ops import rng
+
+    pre = os.path.join(work, "pretrained")
+    file_sd = seeded_backbone_file(os.path.join(pre, "resnet101.pth"),
+                                   RESNET101, seed=7)
+    argv = train_argv("fundus", os.path.join(work, "fundus"), work, "zoo",
+                      "--model", "deeplabv2", "--pretrained_root", pre)
+    with LogRecords() as log:
+        trainer, cfg = make_trainer(argv)
+    if not any(m.startswith("loaded ImageNet backbone weights from")
+               for m in log.messages):
+        fail(f"no overlay log line for {pre}/resnet101.pth: "
+             f"{log.messages[-3:]}")
+    st = trainer.state
+    p = cfg.profile()
+    if (type(st.student).__name__, st.student.backbone.layers,
+            p.patch_size, p.num_channels, cfg.label_bs, cfg.unlabel_bs) \
+            != ("DeepLabV2", RESNET101, 256, 3, 4, 4) \
+            or any(c.in_channels != 2048 for c in st.student.classifier):
+        fail("zoo path is not DeepLabV2-ResNet-101 on full-width fundus")
+    for name, model in (("student", st.student), ("teacher", st.teacher)):
+        bb = model.backbone.state_dict()
+        bad = [k for k, v in file_sd.items() if not k.startswith("fc.")
+               and not torch.equal(bb[k].cpu(), v)]
+        if bad:
+            fail(f"the {name}'s backbone differs from resnet101.pth at "
+                 f"{bad[:3]}")
+    # stage 4's output: 2048 channels at stride 8, in every forward
+    shapes = []
+    hooks = [m.backbone.layer4[-1].register_forward_hook(
+        lambda mod, i, o: shapes.append(tuple(o.shape)))
+        for m in (st.student, st.teacher)]
+
+    rng.launches = 0
+    metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, TIMED_STEPS)
+    launches = rng.launches
+    for h in hooks:
+        h.remove()
+    s8 = p.patch_size // 8
+    if not shapes or any(s[1:] != (2048, s8, s8) for s in shapes):
+        fail(f"stage 4 outputs {sorted(set(shapes))}, want 2048 channels at "
+             f"{s8}x{s8}")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    if len(metrics) != steps:
+        fail(f"{len(metrics)} metric rows for {steps} zoo steps")
+    check_losses(metrics, "deeplabv2")
+    if launches != steps:
+        fail(f"uniform_rng launched {launches} times in {steps} zoo steps")
+    imgs = TIMED_STEPS * (cfg.label_bs + cfg.unlabel_bs)
+    print(f"[zoo path] fundus DeepLabV2-ResNet-101 (OS8, stage 4 "
+          f"{sorted(set(shapes))}), 3x256^2, batch 4+4, float32: "
+          f"{WARMUP_STEPS}+{TIMED_STEPS} steps, {imgs / dt:.2f} img/s, "
+          f"{dt / TIMED_STEPS * 1e3:.1f} ms/step, peak {peak_gib:.2f} GiB; "
+          f"uniform_rng launches {launches}; no host-device sync in the "
+          f"timed steps; overlay of resnet101.pth into both backbones; last "
+          f"loss {float(metrics[-1]['loss']):.4f} | {card}", flush=True)
+    if profile_out:
+        phase_profile(card, trainer, dt / TIMED_STEPS * 1e3, profile_out,
+                      "zoo profile")
+
+    n_part = p.n_part
+    t0 = time.perf_counter()
+    res = {name: trainer.evaluator.evaluate(model, 1, ema=name == "ema")
+           for name, model in (("ema", st.teacher), ("stu", st.student))}
+    eval_s = time.perf_counter() - t0
+    for name, r in res.items():
+        check_eval(r, f"deeplabv2 {name}", n_part)
+    trainer.evaluate_and_checkpoint(0, trainer.iter_num)
+    trainer.wait_for_checkpoint()
+    snap = trainer.snapshot_path
+    best = os.path.join(snap, "deeplabv2_avg_dice_best_model.pth")
+    if not os.path.exists(best):
+        fail(f"no best model written (student dice "
+             f"{res['stu']['metrics'][0].tolist()})")
+    with LogRecords():
+        resumed, _ = make_trainer(argv + ["--load"])
+    n_pairs = check_resumed(trainer, resumed)
+    resumed.close()
+    trainer.close()
+    ema, stu = res["ema"]["metrics"], res["stu"]["metrics"]
+    print(f"[zoo path] evaluation of both models over "
+          f"{sum(len(ld.ds) for ld in trainer.evaluator.loaders)} test "
+          f"images in {eval_s:.1f} s: EMA dice {ema[0].round(4).tolist()}, "
+          f"student dice {stu[0].round(4).tolist()}, all finite; checkpoint "
+          f"({os.path.getsize(os.path.join(snap, 'checkpoint.pth')) / 2**20:.0f}"
+          f" MiB) resumed with --load: {n_pairs} tensors equal | {card}",
+          flush=True)
+    del trainer, resumed, st
+    free_card()
+
+    loss, secs = run_test_entry(cfg, ["--save_img"])
+    pngs = sorted(os.listdir(os.path.join(snap, "pred_images")))
+    n_img = 4 * N_TEST
+    if len(pngs) != n_img or not all(f.endswith(".png") for f in pngs):
+        fail(f"--save_img wrote {len(pngs)} files for {n_img} test images")
+    print(f"[zoo path] python -m ust_run_tpu_torch.test --model deeplabv2 "
+          f"--save_img: rc 0, overall loss {loss:.4f}, {len(pngs)} overlay "
+          f"PNGs, {secs:.1f} s in all | {card}", flush=True)
+    return launches
+
+
+def phase_zoo_short(card, work):
+    """SHORT_STEPS steps of the other zoo models the trainer takes."""
+    from ust_run_tpu_torch.ops import rng
+    cases = [("deeplabv2_r50", "fundus", (3, 4, 6, 3)),
+             ("unet2d", "fundus", None), ("unet2d", "BUSI", None)]
+    for model, dataset, layers in cases:
+        root = os.path.join(work, dataset.lower())
+        with LogRecords():
+            trainer, cfg = make_trainer(train_argv(
+                dataset, root, work, f"{model}_{dataset}", "--model", model,
+                "--pretrained_root", os.path.join(work, "no_pretrained")))
+        net = trainer.state.student
+        if type(net).__name__ != ("DeepLabV2" if layers else "Unet2D") \
+                or (layers and net.backbone.layers != layers):
+            fail(f"--model {model} built {type(net).__name__}")
+        rng.launches = 0
+        times, metrics, peak_gib = steps_one_by_one(trainer, SHORT_STEPS)
+        check_losses(metrics, f"{model} {dataset}")
+        if rng.launches != SHORT_STEPS:
+            fail(f"uniform_rng launched {rng.launches} times in "
+                 f"{SHORT_STEPS} {model} steps")
+        trainer.close()
+        print(f"[zoo short] {dataset} --model {model}, "
+              f"{cfg.profile().num_channels}x256^2, batch 4+4, float32: "
+              f"{SHORT_STEPS} steps at " + ", ".join(f"{t:.1f}" for t in times)
+              + f" ms (first includes warm-up), peak {peak_gib:.2f} GiB, last "
+              f"loss {float(metrics[-1]['loss']):.4f}, uniform_rng launches "
+              f"{rng.launches} | {card}", flush=True)
+        del trainer, net
+        free_card()
+
+
+def phase_prostate_mnms(card, work):
+    """The RNG kernel at the prostate and MNMS field shapes, then the UNet
+    at full width on both profiles, MNMS through its own entry."""
+    import logging
+
+    import numpy as np
+    import torch
+    from ust_run_tpu_torch import train_mnms
+    from ust_run_tpu_torch.data.synthetic import generate
+    from ust_run_tpu_torch.ops import rng
+
+    for n, size in ((16, 384), (16, 288)):
+        out = torch.empty((n, size, size), device="cuda")
+        rng.uniform_fields(out, RNG_SEED)
+        plain = rng.uniform_batch_plain(n, size, RNG_SEED, device="cuda")
+        if not torch.equal(out, plain):
+            fail(f"uniform_rng differs from its plain version at "
+                 f"{(n, size, size)}")
+
+    root = generate("prostate", os.path.join(work, "prostate"), n_train=8,
+                    n_test=2, size=384, seed=2)
+    trainer, cfg = make_trainer(train_argv("prostate", root, work,
+                                           "prostate"))
+    p = cfg.profile()
+    if (p.patch_size, p.num_channels, p.num_classes,
+            type(trainer.state.student).__name__) != (384, 1, 2, "UNet"):
+        fail("prostate phase is not the full-width UNet configuration")
+    rng.launches = 0
+    times, metrics, peak_gib = steps_one_by_one(trainer, SHORT_STEPS)
+    check_losses(metrics, "prostate")
+    if rng.launches != SHORT_STEPS:
+        fail(f"uniform_rng launched {rng.launches} times in {SHORT_STEPS} "
+             f"prostate steps")
+    res = {name: trainer.evaluator.evaluate(model, 1, ema=name == "ema")
+           for name, model in (("ema", trainer.state.teacher),
+                               ("stu", trainer.state.student))}
+    for name, r in res.items():
+        check_eval(r, f"prostate {name}", 1)
+    trainer.close()
+    print(f"[prostate] prostate UNet 64->1024, 1x384^2, batch 4+4, bf16 "
+          f"autocast, {cfg.domain_num} domains: {SHORT_STEPS} steps at "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f" ms (first includes warm-up), peak {peak_gib:.2f} GiB; EMA "
+          f"dice {res['ema']['metrics'][0][0]:.4f}, student dice "
+          f"{res['stu']['metrics'][0][0]:.4f}; all finite; uniform_rng "
+          f"bit-equal at (16,384,384) and (16,288,288) | {card}", flush=True)
+    del trainer
+    free_card()
+
+    root = generate("MNMS", os.path.join(work, "mnms"), n_train=8,
+                    n_test=2, size=288, seed=3)
+    log = logging.getLogger()
+    handlers, level = list(log.handlers), log.level
+    rng.launches = 0
+    t0 = time.perf_counter()
+    try:        # the entry logs to <snapshot>/log.txt and stdout
+        trainer = train_mnms.main([
+            "--data_root", root, "--lb_domain", "1", "--lb_num", "4",
+            "--save_name", "mnms", "--overwrite", "--max_iterations",
+            str(SHORT_STEPS), "--num_eval_iter", str(SHORT_STEPS),
+            "--model_root", os.path.join(work, "model"), "--device",
+            "cuda"])
+    finally:
+        for h in log.handlers[len(handlers):]:
+            log.removeHandler(h)
+            h.close()
+        log.setLevel(level)
+    secs = time.perf_counter() - t0
+    cfg, p, snap = trainer.cfg, trainer.cfg.profile(), trainer.snapshot_path
+    if (cfg.dataset, p.patch_size, p.num_channels, p.num_classes,
+            trainer.state.step) != ("MNMS", 288, 1, 4, SHORT_STEPS):
+        fail("train_mnms did not run the MNMS profile's steps")
+    if rng.launches != SHORT_STEPS:
+        fail(f"uniform_rng launched {rng.launches} times in {SHORT_STEPS} "
+             f"MNMS steps")
+    text = open(os.path.join(snap, "log.txt")).read()
+    lines = [ln for ln in text.splitlines() if "iteration" in ln
+             and "sup_loss" in ln]
+    loss = float(lines[-1].split("loss : ")[1].split(",")[0]) \
+        if lines else float("nan")
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in trainer.state.student.state_dict().values()
+                 if v.is_floating_point())
+    if not (np.isfinite(loss) and finite and "test stu model" in text
+            and os.path.exists(os.path.join(snap, "checkpoint.pth"))):
+        fail(f"train_mnms: last loss {loss}, student finite {finite}, "
+             f"evaluation and checkpoint in {snap}")
+    res = trainer.evaluator.evaluate(trainer.state.teacher, 1)
+    check_eval(res, "MNMS ema", 3)
+    print(f"[mnms] python -m ust_run_tpu_torch.train_mnms, UNet 64->1024, "
+          f"1x288^2, 4 classes, batch 4+4, bf16 autocast: {SHORT_STEPS} steps"
+          f", the epoch-end evaluation and checkpoint in {secs:.1f} s, loss "
+          f"{loss:.4f}, student finite; EMA dice lv/myo/rv "
+          f"{res['metrics'][0].round(4).tolist()}, all finite | {card}",
+          flush=True)
+    del trainer
+    free_card()
+
+
+def steps_one_by_one(trainer, n):
+    """`n` steps, each timed on its own (host clock to a synchronise; the
+    first includes warm-up). Returns (ms per step, metrics, peak GiB)."""
+    import torch
+    times, metrics = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        metrics += trainer.train_steps(1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, metrics, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def step_window(trainer, warmup, timed):
+    """`warmup` steps, then `timed` steps under the sync debug mode, in
+    which any host-device synchronisation raises (the trainer's metric
+    fetch waits on a recorded event, which is not one). Returns (metrics
+    of every step, seconds of the timed steps, peak GiB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = trainer.train_steps(warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics += trainer.train_steps(timed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return metrics, dt, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def unet_forward_gflop(model, size, channels, device):
@@ -814,9 +1204,9 @@ def unet_forward_gflop(model, size, channels, device):
     return 2 * sum(macs) / 1e9
 
 
-def phase_profile(card, trainer, step_ms, out_path):
-    """PROFILED_STEPS more steps of the main path's trainer under
-    torch.profiler (CPU and CUDA activities)."""
+def phase_profile(card, trainer, step_ms, out_path, label="profile"):
+    """PROFILED_STEPS more steps of a path's trainer under torch.profiler
+    (CPU and CUDA activities)."""
     import torch
     hp = trainer.hp
     gflop = unet_forward_gflop(trainer.state.student, hp.patch, hp.channels,
@@ -872,7 +1262,7 @@ def phase_profile(card, trainer, step_ms, out_path):
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(summary, f, indent=1)
-    print(f"[profile] {n} steps: wall {summary['wall_ms_per_step']:.1f} "
+    print(f"[{label}] {n} steps: wall {summary['wall_ms_per_step']:.1f} "
           f"ms/step under the profiler ({step_ms:.1f} without), device "
           f"kernels {summary['device_kernel_ms_per_step']:.1f} ms/step, busy "
           f"{summary['device_busy_share']:.3f} "
@@ -913,23 +1303,43 @@ def main():
         print(f"[build] fused_conv.cu ptxas: {line}", flush=True)
 
     set_numerics()
-    kernels = phase_kernels(card) + [phase_fused_conv(card)]
-    phase_reference(card)
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"[time] {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    kernels = timed("kernels", phase_kernels, card) \
+        + [timed("fused conv", phase_fused_conv, card)]
+    timed("reference", phase_reference, card)
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches, trainer, argv = phase_main_path(card, work, args.profile)
-        phase_eval(card, trainer, argv, work)
+        launches, trainer, argv = timed("main path", phase_main_path, card,
+                                        work, args.profile)
+        timed("eval", phase_eval, card, trainer, argv)
         del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase_busi(card, work)
+        free_card()
+        timed("busi", phase_busi, card, work)
+        free_card()
+        timed("zoo reference", phase_zoo_reference, card)
+        free_card()
+        zoo_launches = timed(
+            "zoo path", phase_zoo_path, card, work,
+            args.profile and os.path.splitext(args.profile)[0] + "_zoo.json")
+        timed("zoo short", phase_zoo_short, card, work)
+        timed("prostate, mnms", phase_prostate_mnms, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    phase_rng_timing(card, kernels[0])
+    timed("rng timing", phase_rng_timing, card, kernels[0])
+    print(f"[time] all: {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         if k["name"] == "uniform_rng":
             k["launches"] = launches["uniform_rng"]
+            k["zoo_path_launches"] = zoo_launches
+            k["bit_equal_at"] = ["(16,256,256)", "(3,37,37)",
+                                 "(16,384,384)", "(16,288,288)"]
         else:
             # its path is the microbench; the model never calls it
             k["main_path_launches"] = launches[k["name"]]

@@ -102,7 +102,7 @@ def test_trainer_entry_runs_on_cpu_when_asked(tmp_path):
     an EMA and student evaluation and a checkpoint at each epoch end, the
     RNG's plain version on the CPU; then --load resumes for a third
     epoch, --eval evaluates and saves nothing, and the standalone
-    evaluator reads the best model."""
+    evaluator reads the best model and writes its overlays."""
     from ust_run_tpu_torch import test as test_entry
     from ust_run_tpu_torch import train
     from ust_run_tpu_torch.data.synthetic import generate
@@ -152,9 +152,12 @@ def test_trainer_entry_runs_on_cpu_when_asked(tmp_path):
                             "--device", "cpu"])
     assert len(dice) == 2 and all(0.0 <= d <= 1.0 for d in dice)
     assert "val_cup_hd" in open(snap / "test_log.txt").read()
-    with pytest.raises(NotImplementedError, match="visualize"):
-        test_entry.main(["--dataset", "fundus", "--save_img", "--device",
-                         "cpu"])
+    # --save_img: one side-by-side overlay per test image
+    test_entry.main(["--dataset", "fundus", "--data_root", root,
+                     "--save_name", "t", "--model_root",
+                     str(tmp_path / "model"), "--domain_num", "1",
+                     "--device", "cpu", "--save_img"])
+    assert sorted(os.listdir(snap / "pred_images")) == ["d1_test_000.png"]
 
 
 @pytest.mark.cuda

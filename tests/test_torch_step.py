@@ -42,6 +42,7 @@ from ust_run_tpu.semisup.state import (CurriculumQueue, LQCarry, TrainState,
 from ust_run_tpu.semisup.step import HyperParams as JaxHP
 from ust_run_tpu.semisup.step import make_step_parts
 from ust_run_tpu_torch.convert import unet_state_dict_from_jax
+from ust_run_tpu_torch.models import UNet
 from ust_run_tpu_torch.semisup import state as pstate
 from ust_run_tpu_torch.semisup import step as pstep
 
@@ -125,7 +126,8 @@ def _t(x, dtype=None):
 
 
 def _port_state(hp, js):
-    ps = pstate.create_train_state(hp, seed=0, device="cpu")
+    ps = pstate.create_train_state(
+        hp, 0, "cpu", *(UNet(hp.channels, hp.num_classes) for _ in range(2)))
     ps.student.load_state_dict(unet_state_dict_from_jax(
         {"params": js.params, "batch_stats": js.batch_stats}))
     ps.teacher.load_state_dict(unet_state_dict_from_jax(

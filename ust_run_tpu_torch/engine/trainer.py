@@ -29,7 +29,8 @@ from ust_run_tpu_torch.data.datasets import SegmentationDataset
 from ust_run_tpu_torch.data.pipeline import BatchPipeline, TestLoader
 from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.evaluator import Evaluator
-from ust_run_tpu_torch.semisup.state import create_train_state, reset_epoch
+from ust_run_tpu_torch.semisup.state import (backbone_arch, build_model,
+                                             create_train_state, reset_epoch)
 from ust_run_tpu_torch.semisup.step import (HyperParams, step_fn,
                                             unpack_metrics)
 from ust_run_tpu_torch.utils.device import resolve_device
@@ -69,8 +70,15 @@ class _Pending:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, snapshot_path):
-        if cfg.model != "unet":
-            raise NotImplementedError(f"model {cfg.model!r} is not ported")
+        if cfg.model == "unet2d_dsbn":
+            # DSBN picks its statistics by a per-call domain label, which
+            # the step never supplies (unet2d.py:58): the JAX package
+            # cannot train it either (tests/test_model_zoo_step.py:11-13)
+            raise ValueError(
+                "--model unet2d_dsbn cannot train: its DomainSpecific"
+                "BatchNorm2d layers need a domain_label that the SSL step "
+                "does not pass; build it with build_model and call it with "
+                "one")
         self.cfg = cfg
         self.snapshot_path = snapshot_path
         self.device = resolve_device(cfg.device)
@@ -105,8 +113,15 @@ class Trainer:
         self.device_data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device) for k, v in corpus.items()}
         amp = bool(cfg.amp) and self.device.type == "cuda"
+        # weights drawn on the CPU, so a seed gives the same models on
+        # every device
+        init = torch.Generator().manual_seed(cfg.seed)
+        student, teacher = (build_model(cfg, self.hp, init, amp)
+                            for _ in range(2))
         self.state = create_train_state(self.hp, cfg.seed, self.device,
-                                        amp=amp)
+                                        student, teacher)
+        if cfg.model.startswith("deeplabv2"):
+            self._load_pretrained_backbone()
         self.writer = MetricWriter(os.path.join(snapshot_path, "log"))
 
         # best-dice bookkeeping (train.py:526-535)
@@ -129,6 +144,34 @@ class Trainer:
         self._pending = None
         self._meters = None
         self.new_epoch(self.start_epoch)
+
+    def _load_pretrained_backbone(self):
+        """ImageNet init of the DeepLab backbone (trainer.py:182-207): the
+        user's torchvision-layout `<pretrained_root>/<arch>.pth` (its
+        tensors, optionally under `state_dict`; `fc.*` ignored) goes into
+        the backbone of BOTH student and teacher; the head stays random.
+        Without the file, the JAX package's warning and the random init.
+        The port fetches nothing."""
+        cfg = self.cfg
+        arch = backbone_arch(cfg.model)
+        path = os.path.join(cfg.pretrained_root, f"{arch}.pth")
+        if not os.path.exists(path):
+            logging.warning(
+                "pretrained backbone %s not found; training from random "
+                "init (the reference would require this file, "
+                "resnet.py:185-190). Set --pretrained_root.", path)
+            return
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if "state_dict" in sd and not any("conv" in k for k in sd):
+            sd = sd["state_dict"]
+        sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
+        # torchvision's ImageNet files predate num_batches_tracked
+        for k, v in self.state.student.backbone.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                sd.setdefault(k, v)
+        for model in (self.state.student, self.state.teacher):
+            ckpt.restore_onto(model.backbone, sd)
+        logging.info("loaded ImageNet backbone weights from %s", path)
 
     def _resume(self, path):
         payload = ckpt.load_checkpoint(path)

@@ -17,8 +17,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
-from ust_run_tpu_torch.models.unet import UNet
+from ust_run_tpu_torch.models import DeepLabV2, UNet, Unet2D
 
 
 @dataclasses.dataclass
@@ -52,8 +53,8 @@ class LQCarry:
 class TrainState:
     step: int                    # iter_num
     epoch: int                   # epoch_num (hardness forcing)
-    student: UNet
-    teacher: UNet
+    student: nn.Module
+    teacher: nn.Module
     optimizer: torch.optim.SGD
     queue: CurriculumQueue
     lq: LQCarry
@@ -89,20 +90,38 @@ def lr_at(step, base_lr, max_iterations):
                  ** np.float32(0.9))
 
 
-def build_unet(hp, generator, amp=False):
-    return UNet(hp.channels, hp.num_classes, amp=amp).init_weights_(generator)
+def build_model(cfg, hp, generator, amp=False):
+    """The model zoo (ust_run_tpu/engine/trainer.py:45-69), weights drawn
+    from `generator` on the CPU. `amp` (bf16 autocast) reaches the UNet
+    alone: the JAX package gives the other families no compute dtype, so
+    they run in float32."""
+    if cfg.model == "unet":
+        return UNet(hp.channels, hp.num_classes, amp=amp) \
+            .init_weights_(generator)
+    if cfg.model == "unet2d":
+        return Unet2D(c=hp.channels, num_classes=hp.num_classes) \
+            .init_weights_(generator)
+    if cfg.model == "unet2d_dsbn":
+        return Unet2D(c=hp.channels, num_classes=hp.num_classes, norm="dsbn",
+                      num_domains=cfg.domain_num).init_weights_(generator)
+    if cfg.model in ("deeplabv2", "deeplabv2_r50"):
+        return DeepLabV2(backbone_arch(cfg.model), hp.num_classes,
+                         hp.channels).init_weights_(generator)
+    raise ValueError(f"unknown model {cfg.model!r}")
 
 
-def create_train_state(hp, seed, device, amp=False):
-    """Student and teacher with independent draws (the reference builds two
-    fresh models, train.py:496-506; the first EMA update, alpha=0, snaps
-    the teacher to the student). Weights are drawn on the CPU, so a seed
-    gives the same model on every device."""
-    init = torch.Generator().manual_seed(seed)
-    student = build_unet(hp, init, amp).to(
-        device, memory_format=torch.channels_last)
-    teacher = build_unet(hp, init, amp).to(
-        device, memory_format=torch.channels_last)
+def backbone_arch(model):
+    """The ResNet of a DeepLab --model value (trainer.py:190)."""
+    return "resnet50" if model.endswith("r50") else "resnet101"
+
+
+def create_train_state(hp, seed, device, student, teacher):
+    """The train state around two models built with independent draws (the
+    reference builds two fresh models, train.py:496-506; the first EMA
+    update, alpha=0, snaps the teacher to the student); both move to
+    `device`, channels_last."""
+    student = student.to(device, memory_format=torch.channels_last)
+    teacher = teacher.to(device, memory_format=torch.channels_last)
     for p in teacher.parameters():
         p.requires_grad_(False)
     student.train()

@@ -6,11 +6,13 @@ repo's test.py).
 
 Flags are those of test.py (the reference's test.py:19-32) plus
 `--device` (default cuda; a missing card raises unless `--device cpu` is
-given). It rebuilds the per-domain test loaders, loads
-`<model_root>/<dataset>/<save_name>/unet_avg_dice_best_model.pth` (the
+given). It builds `--model` (any of the trainer's: unet, unet2d,
+deeplabv2, deeplabv2_r50), rebuilds the per-domain test loaders, loads
+`<model_root>/<dataset>/<save_name>/<model>_avg_dice_best_model.pth` (the
 port's file or upstream's; `--load_path` is ignored there too) and runs
 one evaluation pass, logged to `test_log.txt` and stdout. `--save_img`
-needs the overlay writer (utils/visualize.py), which is not ported yet.
+then writes each test image's prediction and ground-truth overlays to
+`<snapshot>/pred_images/<name>` (JAX test.py:86-97).
 """
 
 import argparse
@@ -25,8 +27,9 @@ from ust_run_tpu_torch.data.datasets import SegmentationDataset
 from ust_run_tpu_torch.data.pipeline import TestLoader
 from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.evaluator import Evaluator
-from ust_run_tpu_torch.models import UNet
+from ust_run_tpu_torch.semisup.state import build_model
 from ust_run_tpu_torch.semisup.step import HyperParams
+from ust_run_tpu_torch.utils import visualize
 from ust_run_tpu_torch.utils.device import resolve_device
 
 
@@ -55,12 +58,6 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)     # raise before touching any file
-    if args.save_img:
-        raise NotImplementedError(
-            "--save_img needs utils/visualize.py, which is not ported to "
-            "ust_run_tpu_torch yet")
-    if args.model != "unet":
-        raise NotImplementedError(f"model {args.model!r} is not ported")
     cfg = TrainConfig(dataset=args.dataset, save_name=args.save_name,
                       model=args.model, domain_num=args.domain_num,
                       data_root=args.data_root, model_root=args.model_root,
@@ -83,18 +80,37 @@ def main(argv=None):
             cfg.dataset, profile, cfg.data_root, "test", -1, [i]),
             cfg.eval_batch) for i in range(1, cfg.domain_num + 1)]
         hp = HyperParams.from_config(cfg)
-        model = UNet(profile.num_channels, profile.num_classes,
-                     amp=bool(cfg.amp) and device.type == "cuda")
+        model = build_model(cfg, hp, torch.Generator().manual_seed(0),
+                            amp=bool(cfg.amp) and device.type == "cuda")
         best_path = os.path.join(snapshot_path,
                                  f"{cfg.model}_avg_dice_best_model.pth")
         ckpt.restore_onto(model, ckpt.load_best_model(best_path))
         model = model.to(device, memory_format=torch.channels_last)
         evaluator = Evaluator(hp, loaders, list(profile.parts), device)
-        return evaluator.run(model, 1, writer=None, ema=True)
+        dice = evaluator.run(model, 1, writer=None, ema=True)
+        if args.save_img:
+            save_overlays(evaluator, model,
+                          os.path.join(snapshot_path, "pred_images"))
+        return dice
     finally:
         for h in handlers:
             root.removeHandler(h)
             h.close()
+
+
+def save_overlays(evaluator, model, out_dir):
+    """Every test image's prediction and ground truth overlaid side by side
+    (utils/visualize.draw_mask_and_save), in eval mode."""
+    model.eval()
+    for loader in evaluator.loaders:
+        for batch in loader:
+            _, _, pred_parts, mask_parts = evaluator.forward(
+                model, batch["image"], batch["label"])
+            pp, mp = pred_parts.cpu().numpy(), mask_parts.cpu().numpy()
+            for j, name in enumerate(batch["names"]):
+                visualize.draw_mask_and_save(batch["image"][j], pp[j], mp[j],
+                                             out_dir, name)
+    logging.info("saved overlays to %s", out_dir)
 
 
 if __name__ == "__main__":
