@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (ust_run_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile FILE]
+    python3 chip_smoke.py --ab TREE[@nccl] ... [--profile FILE]
 
 Phases, one line each (or a few); any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
@@ -13,7 +14,7 @@ Phases, one line each (or a few); any failure exits non-zero:
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar (its timing is phase 13);
+       ragged one, and the statistical bar (its timing is phase 14);
      - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
        (ragged image edges, a partial last K chunk with C > 64, a partial
        N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
@@ -77,13 +78,38 @@ Phases, one line each (or a few); any failure exits non-zero:
      (1x384^2) for 3 steps and one evaluation of both models, and on
      MNMS (1x288^2, 4 classes) through the `train_mnms` entry for 3
      steps and its epoch-end evaluation and checkpoint;
- 13. RNG timing: the uniform-field RNG's and torch.rand's device time
+ 13. data parallel (ust_run_tpu_torch.parallel), fundus at phase 5's
+     full width: (a) a one-rank NCCL process group, 3 steps whose state
+     and metrics must be bit-equal to the plain trainer's from the same
+     seed, then 10 steps timed under the sync debug mode (img/s beside
+     phase 5's); (b) two ranks spawned on cuda:0 under Gloo, 3 steps: the
+     replicas bit-equal (a max-abs-difference all-reduce reads 0), every
+     loss finite, uniform_rng once per step per rank, the first step's
+     losses and the state after 3 steps within DP_LOSS_RTOL and
+     DP_UPDATE_SHARE of world 1, and a control run of the same ranks with
+     the mean of their local losses planted must miss DP_UPDATE_SHARE;
+     its img/s is two processes sharing one card, not a scaling figure;
+     (c) the same two ranks on
+     `deeplabv2_r50`, float32, 3 steps: replicas bit-equal, and one
+     sharded evaluation equal to each rank's evaluation of every sample
+     alone within 1e-6;
+ 14. RNG timing: the uniform-field RNG's and torch.rand's device time
      per kernel (torch.profiler) apart from the host's cost per call
      (host clock). Last, so that no phase timed before it runs in a
      process that torch.profiler has traced.
 Each phase prints its wall time. Then a JSON line with the kernels'
 numbers, the card line again, and `{"ok": true, "device": {...}}` as the
 last line.
+
+`--ab` runs only the main path, tree against tree on one card: for each
+TREE (a checkout of the repo, e.g. `git archive <commit>` unpacked under
+the ignored `_ab/`), in the order given, a fresh process puts TREE's
+package first on the path and times phase 5's trainer over AB_STEPS
+steps (`TREE@nccl`: on a one-rank NCCL process group, for a tree that
+has ust_run_tpu_torch.parallel), with `--profile FILE` also phase 6's
+profile (to FILE's stem + `_<i>.json`, with the operators that take
+the most host time). One JSON line per run. Interleave the trees (A B B
+A) to compare them within one call.
 
 Synthetic data, the trainer's log and the kernel build stay inside the
 checkout (`_smoke/`, `ust_run_tpu_torch/_build/`); `_smoke/` is removed
@@ -113,6 +139,20 @@ MOMENT_RTOL = 1e-5                # bn_relu_conv3x3 moments: rtol, and atol
 #                                   as a share of the largest magnitude
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS, BUSI_STEPS = 3, 10, 5, 3
 SHORT_STEPS = 3                   # zoo short, prostate and MNMS phases
+DP_STEPS = 3                      # data-parallel phase: steps per run
+AB_STEPS = 30                     # --ab: timed steps per run
+# two ranks vs world 1 at bf16 (phase 13 b): the first step's losses to one
+# bf16 ulp, relative (2^-8); after DP_STEPS steps, the distance to world 1
+# as a share of how far the steps moved each state. An N-fold gradient
+# misses by 100% and more; the mean of the ranks' local losses only just
+# (6.4e-2 on the momentum against the port's 9.9e-3, H100, PERF.md)
+DP_LOSS_RTOL = 2.0 ** -8
+DP_UPDATE_SHARE = 0.05
+# the same at float32, one step: the gradient's distance to world 1's as a
+# share of its norm, which separates the two (H100: 1.6e-4 for the port,
+# 4.0e-3 with the mean of the ranks' local losses planted; the phase
+# plants it as a control, which must miss this bar)
+DP_GRAD_SHARE = 1e-3
 N_TEST = 8                        # synthetic test images per domain
 LOSSES = ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
           "unsup_loss_s")
@@ -637,7 +677,7 @@ def phase_main_path(card, work, profile_out=None):
           f"{card}", flush=True)
     if profile_out:
         phase_profile(card, trainer, step_ms, profile_out)
-    return launches, trainer, argv
+    return launches, trainer, argv, imgs / dt
 
 
 def snapshot_dir(cfg):
@@ -813,11 +853,13 @@ def train_argv(dataset, root, work, save_name, *extra):
             *extra]
 
 
-def make_trainer(argv):
+def make_trainer(argv, mesh=None):
     from ust_run_tpu_torch.config import build_parser, config_from_args
     from ust_run_tpu_torch.engine.trainer import Trainer
     cfg = config_from_args(build_parser().parse_args(argv)).resolve()
-    return Trainer(cfg, snapshot_dir(cfg)), cfg
+    # no mesh argument for an --ab tree from before the data-parallel port
+    kw = {} if mesh is None else {"mesh": mesh}
+    return Trainer(cfg, snapshot_dir(cfg), **kw), cfg
 
 
 def check_losses(metrics, label):
@@ -1146,6 +1188,295 @@ def phase_prostate_mnms(card, work):
     free_card()
 
 
+def state_tensors(state):
+    """Everything a replica holds, by name: both models' state_dicts, the
+    SGD momentum, the queue, the LQ carry and choice_th."""
+    import dataclasses
+    out = {f"student.{k}": v for k, v in state.student.state_dict().items()}
+    out.update({f"teacher.{k}": v
+                for k, v in state.teacher.state_dict().items()})
+    out.update({f"momentum.{i}": s["momentum_buffer"] for i, s in
+                state.optimizer.state_dict()["state"].items()})
+    out.update({f"queue.{k}": v for k, v in state.queue.fields().items()})
+    out.update({f"lq.{f.name}": getattr(state.lq, f.name)
+                for f in dataclasses.fields(state.lq)})
+    out["choice_th"] = state.choice_th
+    return out
+
+
+def update_share(got, ref, init, prefix):
+    """||got - ref|| / ||ref - init|| over the float tensors under
+    `prefix`: how far `got` lies from `ref` as a share of how far the steps
+    moved `ref`."""
+    import torch
+    keys = [k for k in ref if k.startswith(prefix)
+            and ref[k].is_floating_point()]
+    d = moved = 0.0
+    for k in keys:
+        r = ref[k].double().cpu()
+        start = init[k].double().cpu() if k in init else 0.0   # momentum: 0
+        d += float((got[k].double().cpu() - r).square().sum())
+        moved += float((r - start).square().sum())
+    return math.sqrt(d / max(moved, 1e-300))
+
+
+def mean_of_local_losses(world):
+    """The control fault of phase 13 (b): what averaging the ranks' own
+    losses (plain DDP) computes. Each rank's loss terms are those of its
+    rows alone, divided by the ranks, so that the gradient sum averages
+    the local gradients. Returns the fault, to put in the place of
+    losses.ce_plus_dice."""
+    from ust_run_tpu_torch.utils import losses
+    port = losses.ce_plus_dice
+
+    def fault(*args, mesh=None, rows=None, **kw):
+        return port(*args, **kw) / world
+    return fault
+
+
+def dp_rank(rank, world, work, fundus_runs, zoo_argv):
+    """One rank of phase 13's Gloo group on cuda:0 (spawned): the fundus
+    runs, each (name, argv, steps, planted) from the same seed (`planted`:
+    with `mean_of_local_losses`), then DP_STEPS `deeplabv2_r50` steps and
+    one sharded evaluation beside this rank's evaluation of every sample
+    alone. Saves what it saw to `<work>/dp_ranks/rank<rank>.pt`; rank 0
+    adds the fundus runs' states."""
+    import torch
+    from ust_run_tpu_torch import parallel
+    from ust_run_tpu_torch.engine.evaluator import Evaluator
+    from ust_run_tpu_torch.ops import rng
+    from ust_run_tpu_torch.utils import losses
+
+    mesh = parallel.init_distributed(
+        backend="gloo", device="cuda:0", rank=rank, world_size=world,
+        init_method="file://" + os.path.join(work, "dp_store_b"))
+    res = {}
+    try:
+        for name, argv, steps, planted in fundus_runs:
+            port = losses.ce_plus_dice
+            if planted:
+                losses.ce_plus_dice = mean_of_local_losses(world)
+            try:
+                trainer, _ = make_trainer(argv, mesh)
+                rng.launches = 0
+                t0 = time.perf_counter()
+                metrics = trainer.train_steps(steps)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                losses.ce_plus_dice = port
+            st = state_tensors(trainer.state)
+            res[name] = dict(
+                metrics=metrics, launches=rng.launches, secs=secs,
+                replica_diff=mesh.max_replica_difference(list(st.values())))
+            if rank == 0:
+                res[name]["state"] = {k: v.detach().cpu()
+                                      for k, v in st.items()}
+            trainer.close()
+            del trainer, st
+            free_card()
+
+        with LogRecords():
+            trainer, _ = make_trainer(zoo_argv, mesh)
+        rng.launches = 0
+        metrics = trainer.train_steps(DP_STEPS)
+        launches = rng.launches
+        st = state_tensors(trainer.state)
+        diff = mesh.max_replica_difference(list(st.values()))
+        ev = trainer.evaluator
+        with LogRecords():
+            sharded = ev.evaluate(trainer.state.teacher, 1)
+            alone = Evaluator(ev.hp, ev.loaders, ev.parts,
+                              ev.device).evaluate(trainer.state.teacher, 1)
+        res["zoo"] = dict(metrics=metrics, launches=launches,
+                          replica_diff=diff, sharded=sharded, alone=alone,
+                          model=type(trainer.state.student).__name__,
+                          layers=trainer.state.student.backbone.layers)
+        trainer.close()
+    finally:
+        mesh.close()
+    torch.save(res, os.path.join(work, "dp_ranks", f"rank{rank}.pt"))
+
+
+def run_dp_ranks(work, world, *args, timeout=600):
+    """dp_rank on `world` spawned processes; fails on a rank's error or
+    after `timeout` s, and kills what still runs. Returns their results."""
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    os.makedirs(os.path.join(work, "dp_ranks"), exist_ok=True)
+    ctx = mp.start_processes(dp_rank, args=(world, work) + args,
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                fail(f"the data-parallel ranks took more than {timeout} s")
+    except ProcessException as e:
+        fail(f"a data-parallel rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [torch.load(os.path.join(work, "dp_ranks", f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def phase_data_parallel(card, work, main_img_s):
+    """The trainer on a data-parallel mesh (ust_run_tpu_torch.parallel),
+    full-width fundus as in phase 5: (a) world 1 under NCCL against the
+    plain trainer, (b) two Gloo ranks sharing cuda:0 against world 1,
+    (c) two Gloo ranks on deeplabv2_r50 and a sharded evaluation. Returns
+    the RNG kernel's launches in each run."""
+    import numpy as np
+    import torch
+    from ust_run_tpu_torch import parallel
+    from ust_run_tpu_torch.ops import rng
+
+    root = os.path.join(work, "fundus")
+    plain, cfg = make_trainer(train_argv("fundus", root, work, "dp_plain"))
+    init = {k: v.detach().clone()
+            for k, v in state_tensors(plain.state).items()}
+    ref_metrics = plain.train_steps(DP_STEPS)
+    ref = {k: v.detach().clone()
+           for k, v in state_tensors(plain.state).items()}
+    plain.close()
+    del plain
+    free_card()
+    # the first step's gradient in float32 (the SGD momentum after it)
+    f32_argv = train_argv("fundus", root, work, "dp_f32", "--amp", "0")
+    plain, _ = make_trainer(f32_argv)
+    plain.train_steps(1)
+    ref_grad = {k: v.detach().clone() for k, v in
+                state_tensors(plain.state).items() if k.startswith("momentum.")}
+    plain.close()
+    del plain
+    free_card()
+
+    # (a) one rank under NCCL: the plain trainer's state, bit for bit
+    mesh = parallel.init_distributed(
+        backend="nccl", device="cuda:0", rank=0, world_size=1,
+        init_method="file://" + os.path.join(work, "dp_store_a"))
+    try:
+        trainer, _ = make_trainer(
+            train_argv("fundus", root, work, "dp_nccl"), mesh)
+        rng.launches = 0
+        warm = trainer.train_steps(DP_STEPS)
+        got = state_tensors(trainer.state)
+        unequal = [k for k in ref if not torch.equal(got[k], ref[k])]
+        unequal += [f"step {i + 1} {k}" for i, (m, r) in
+                    enumerate(zip(warm, ref_metrics)) for k in m
+                    if not np.array_equal(m[k], r[k])]
+        del got
+        metrics, dt, peak_gib = step_window(trainer, 0, TIMED_STEPS)
+        launches_a = rng.launches
+        trainer.close()
+        del trainer
+    finally:
+        mesh.close()
+    free_card()
+    if unequal:
+        fail(f"world 1 under NCCL differs from the plain trainer after "
+             f"{DP_STEPS} steps at {len(unequal)} tensors/metrics: "
+             f"{unequal[:6]}")
+    check_losses(warm + metrics, "world-1 NCCL")
+    if launches_a != DP_STEPS + TIMED_STEPS:
+        fail(f"uniform_rng launched {launches_a} times in "
+             f"{DP_STEPS + TIMED_STEPS} world-1 steps")
+    img_s = TIMED_STEPS * (cfg.label_bs + cfg.unlabel_bs) / dt
+    print(f"[data parallel] (a) world 1 under NCCL, fundus UNet 64->1024, "
+          f"3x256^2, batch 4+4, bf16 autocast: {DP_STEPS}+{TIMED_STEPS} "
+          f"steps, state and metrics after {DP_STEPS} steps bit-equal to "
+          f"the plain trainer's ({len(ref)} tensors); {img_s:.2f} img/s "
+          f"(phase 5, no process group: {main_img_s:.2f}), peak "
+          f"{peak_gib:.2f} GiB; uniform_rng launches {launches_a}; no "
+          f"host-device sync in the timed steps | {card}", flush=True)
+
+    # (b) and (c): two Gloo ranks sharing cuda:0, each fundus run from the
+    # same seed; the planted ones average the ranks' local losses
+    runs = [(name, train_argv("fundus", root, work, f"dp_{name}", "--device",
+                              "cuda:0", *extra), steps, planted)
+            for name, extra, steps, planted in (
+                ("bf16", (), DP_STEPS, False),
+                ("bf16_planted", (), DP_STEPS, True),
+                ("f32", ("--amp", "0"), 1, False),
+                ("f32_planted", ("--amp", "0"), 1, True))]
+    t0 = time.perf_counter()
+    res = run_dp_ranks(
+        work, 2, runs,
+        train_argv("fundus", root, work, "dp_zoo", "--device", "cuda:0",
+                   "--model", "deeplabv2_r50", "--pretrained_root",
+                   os.path.join(work, "no_pretrained")))
+    wall = time.perf_counter() - t0
+    for r, out in enumerate(res):
+        for run, steps in [(name, steps) for name, _, steps, _ in runs] \
+                + [("zoo", DP_STEPS)]:
+            o = out[run]
+            check_losses(o["metrics"], f"rank {r} {run}")
+            if o["replica_diff"] != 0.0:
+                fail(f"{run}: rank {r} differs from rank 0 by "
+                     f"{o['replica_diff']} after {steps} steps")
+            if o["launches"] != steps:
+                fail(f"{run}: uniform_rng launched {o['launches']} times in "
+                     f"{steps} steps on rank {r}")
+    b = res[0]["bf16"]
+    loss_err = max(abs(float(b["metrics"][0][k]) - float(ref_metrics[0][k]))
+                   / abs(float(ref_metrics[0][k])) for k in LOSSES)
+    shares = {p: update_share(b["state"], ref, init, p)
+              for p in ("student.", "teacher.", "momentum.")}
+    planted = {p: update_share(res[0]["bf16_planted"]["state"], ref, init, p)
+               for p in shares}
+    exact = [k for k in ("queue.valid", "lq.img", "lq.valid", "choice_th")
+             if not torch.equal(b["state"][k], ref[k].cpu())]
+    grad = {run: update_share(res[0][run]["state"], ref_grad, {},
+                              "momentum.") for run in ("f32", "f32_planted")}
+    print(f"[data parallel] (b) 2 Gloo ranks sharing cuda:0, same "
+          f"configuration, {DP_STEPS} steps: replicas bit-equal (max |d| "
+          f"0), uniform_rng launches {[o['bf16']['launches'] for o in res]}"
+          f"; vs world 1: first-step losses max rel |d| {loss_err:.2e}, after "
+          f"{DP_STEPS} steps ||d||/||update|| student {shares['student.']:.2e}"
+          f" teacher {shares['teacher.']:.2e} momentum "
+          f"{shares['momentum.']:.2e} (bar {DP_UPDATE_SHARE}; with the mean "
+          f"of the ranks' local losses planted: {planted['student.']:.2e}, "
+          f"{planted['teacher.']:.2e}, {planted['momentum.']:.2e}), queue/LQ "
+          f"image/choice_th {'equal' if not exact else exact}; two processes "
+          f"on one card: "
+          f"{DP_STEPS * (cfg.label_bs + cfg.unlabel_bs) / b['secs']:.2f} "
+          f"img/s (not a scaling figure) | {card}", flush=True)
+    print(f"[data parallel] (b) float32 (--amp 0), 1 step, the gradient vs "
+          f"world 1's, ||d||/||g||: {grad['f32']:.2e}; with the mean of the "
+          f"ranks' local losses planted {grad['f32_planted']:.2e} (bar "
+          f"{DP_GRAD_SHARE}: the port within, the planted fault beyond) | "
+          f"{card}", flush=True)
+    if loss_err > DP_LOSS_RTOL or max(shares.values()) > DP_UPDATE_SHARE \
+            or exact:
+        fail(f"2 ranks vs world 1: losses {loss_err}, shares {shares}, "
+             f"unequal {exact}")
+    if grad["f32"] > DP_GRAD_SHARE or grad["f32_planted"] <= DP_GRAD_SHARE:
+        fail(f"float32 gradient vs world 1: {grad} against {DP_GRAD_SHARE}")
+
+    z = [out["zoo"] for out in res]
+    worst = max(max(float(np.abs(o["sharded"]["metrics"]
+                                 - o["alone"]["metrics"]).max()),
+                    abs(o["sharded"]["loss"] - o["alone"]["loss"]))
+                for o in z)
+    if (z[0]["model"], z[0]["layers"]) != ("DeepLabV2", (3, 4, 6, 3)) \
+            or worst > 1e-6:
+        fail(f"(c) {z[0]['model']} {z[0]['layers']}: sharded evaluation "
+             f"vs one rank alone max |d| {worst}")
+    check_eval(z[0]["sharded"], "deeplabv2_r50 sharded", cfg.profile().n_part)
+    print(f"[data parallel] (c) 2 Gloo ranks, deeplabv2_r50, float32, "
+          f"{DP_STEPS} steps: replicas bit-equal, uniform_rng launches "
+          f"{[o['launches'] for o in z]}; the sharded evaluation (EMA dice "
+          f"{z[0]['sharded']['metrics'][0].round(4).tolist()}) equals each "
+          f"rank's evaluation of every sample alone within {worst:.1e}; "
+          f"(b)+(c) {wall:.1f} s wall | {card}", flush=True)
+    return {"world1_nccl": launches_a,
+            "gloo_fundus": [o["bf16"]["launches"] for o in res],
+            "gloo_deeplabv2_r50": [o["launches"] for o in z]}
+
+
 def steps_one_by_one(trainer, n):
     """`n` steps, each timed on its own (host clock to a synchronise; the
     first includes warm-up). Returns (ms per step, metrics, peak GiB)."""
@@ -1206,7 +1537,8 @@ def unet_forward_gflop(model, size, channels, device):
 
 def phase_profile(card, trainer, step_ms, out_path, label="profile"):
     """PROFILED_STEPS more steps of a path's trainer under torch.profiler
-    (CPU and CUDA activities)."""
+    (CPU and CUDA activities); writes the summary to `out_path` and
+    returns it."""
     import torch
     hp = trainer.hp
     gflop = unet_forward_gflop(trainer.state.student, hp.patch, hp.channels,
@@ -1241,9 +1573,11 @@ def phase_profile(card, trainer, step_ms, out_path, label="profile"):
                 return getattr(evt, name)
         return 0.0
 
-    ops = sorted((e for e in prof.key_averages()
-                  if e.device_type != cuda and device_us(e) > 0),
-                 key=device_us, reverse=True)
+    averages = [e for e in prof.key_averages() if e.device_type != cuda]
+    ops = sorted((e for e in averages if device_us(e) > 0), key=device_us,
+                 reverse=True)
+    host_ops = sorted(averages, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)
     summary = {
         "card": card, "steps": n,
         "unprofiled_ms_per_step": step_ms,
@@ -1258,6 +1592,10 @@ def phase_profile(card, trainer, step_ms, out_path, label="profile"):
         "conv_tflop_per_step": gflop * n_fwd / 1e3,
         "top_ops": [{"op": e.key, "device_ms_per_step": device_us(e) / 1e3 / n,
                      "calls_per_step": e.count / n} for e in ops[:25]],
+        "top_host_ops": [{"op": e.key, "calls_per_step": e.count / n,
+                          "self_host_ms_per_step":
+                              e.self_cpu_time_total / 1e3 / n}
+                         for e in host_ops[:25]],
     }
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
@@ -1271,6 +1609,54 @@ def phase_profile(card, trainer, step_ms, out_path, label="profile"):
           f"sync calls " + ", ".join(f"{k} {len(v)}" for k, v in syncs.items())
           + f"; convs {gflop:.2f} GFLOP per image forward; -> {out_path} | "
           f"{card}", flush=True)
+    return summary
+
+
+def ab_run(card, spec, profile_out):
+    """One run of --ab, in this process: phase 5's trainer and step window
+    (AB_STEPS timed steps) with TREE's package, on a one-rank NCCL group
+    for `TREE@nccl`; then, with `profile_out`, phase 6's profile. Prints
+    one JSON line."""
+    tree, _, mode = spec.partition("@")
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    from ust_run_tpu_torch.data.synthetic import generate
+    from ust_run_tpu_torch.engine.trainer import set_numerics
+
+    set_numerics()
+    work = os.path.join(tree, "_smoke_ab")
+    shutil.rmtree(work, ignore_errors=True)
+    mesh = prof = None
+    try:
+        root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
+                        n_test=N_TEST, size=256, seed=0)
+        if mode == "nccl":
+            from ust_run_tpu_torch import parallel
+            mesh = parallel.init_distributed(
+                backend="nccl", device="cuda:0", rank=0, world_size=1,
+                init_method="file://" + os.path.join(work, "store"))
+        trainer, cfg = make_trainer(train_argv("fundus", root, work, "ab"),
+                                    mesh)
+        metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, AB_STEPS)
+        check_losses(metrics, spec)
+        step_ms = dt / AB_STEPS * 1e3
+        if profile_out:
+            prof = phase_profile(card, trainer, step_ms, profile_out,
+                                 f"ab {spec}")
+        trainer.close()
+    finally:
+        if mesh is not None:
+            mesh.close()
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({
+        "tree": tree, "mode": mode or "plain",
+        "img_s": AB_STEPS * (cfg.label_bs + cfg.unlabel_bs) / dt,
+        "ms_step": step_ms, "peak_gib": peak_gib,
+        "last_loss": float(metrics[-1]["loss"]),
+        "profile": prof and {k: prof[k] for k in (
+            "wall_ms_per_step", "device_kernel_ms_per_step",
+            "kernel_launches_per_step", "launch_api_ms_per_step")},
+        "card": card}), flush=True)
 
 
 def main():
@@ -1278,10 +1664,26 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="FILE", default=None,
                     help="also profile the main path; write JSON to FILE")
+    ap.add_argument("--ab", metavar="TREE[@nccl]", nargs="+", default=None,
+                    help="only time the main path of each tree, in order, "
+                    "each in a fresh process")
+    ap.add_argument("--ab-run", metavar="TREE[@nccl]", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA GPU")
+    if args.ab_run:
+        return ab_run(card_line(), args.ab_run, args.profile)
+    if args.ab:
+        print(card_line(), flush=True)
+        stem = args.profile and os.path.splitext(args.profile)[0]
+        for i, spec in enumerate(args.ab):
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--ab-run", spec] + (
+                ["--profile", f"{stem}_{i}.json"] if stem else []),
+                check=True)
+        return
     sys.path.insert(0, HERE)
     from ust_run_tpu_torch.engine.trainer import set_numerics
     from ust_run_tpu_torch.ops import cuda_build
@@ -1316,8 +1718,8 @@ def main():
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches, trainer, argv = timed("main path", phase_main_path, card,
-                                        work, args.profile)
+        launches, trainer, argv, main_img_s = timed(
+            "main path", phase_main_path, card, work, args.profile)
         timed("eval", phase_eval, card, trainer, argv)
         del trainer
         free_card()
@@ -1330,6 +1732,9 @@ def main():
             args.profile and os.path.splitext(args.profile)[0] + "_zoo.json")
         timed("zoo short", phase_zoo_short, card, work)
         timed("prostate, mnms", phase_prostate_mnms, card, work)
+        free_card()
+        dp_launches = timed("data parallel", phase_data_parallel, card, work,
+                            main_img_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("rng timing", phase_rng_timing, card, kernels[0])
@@ -1338,6 +1743,7 @@ def main():
         if k["name"] == "uniform_rng":
             k["launches"] = launches["uniform_rng"]
             k["zoo_path_launches"] = zoo_launches
+            k["data_parallel_launches"] = dp_launches
             k["bit_equal_at"] = ["(16,256,256)", "(3,37,37)",
                                  "(16,384,384)", "(16,288,288)"]
         else:

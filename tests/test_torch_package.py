@@ -267,3 +267,50 @@ def test_fused_conv_tma_masks_on_card(shape, want):
     for m, pm in ((m1, p1), (m2, p2)):
         torch.testing.assert_close(m, pm, rtol=1e-5,
                                    atol=1e-5 * pm.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_world1_nccl_trainer_equals_plain_trainer_on_card(tmp_path):
+    """On a card: the trainer on a one-rank NCCL process group
+    (ust_run_tpu_torch.parallel: shards, gathers, loss partial sums,
+    synchronised BatchNorm and the gradient all-reduce, each an identity
+    at world 1) takes the plain trainer's steps bit for bit: 3 fundus
+    steps at patch 64, bf16 autocast, every state tensor and metric
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (NCCL has no CPU mode)")
+    from torch_dist import state_tensors
+    from ust_run_tpu_torch import parallel
+    from ust_run_tpu_torch.config import build_parser, config_from_args
+    from ust_run_tpu_torch.data.synthetic import generate
+    from ust_run_tpu_torch.engine.trainer import Trainer
+
+    root = generate("fundus", str(tmp_path / "fundus"), n_train=5,
+                    n_test=1, size=64, seed=0)
+
+    def run(name, mesh=None):
+        cfg = config_from_args(build_parser().parse_args([
+            "--dataset", "fundus", "--data_root", root, "--lb_domain", "1",
+            "--lb_num", "3", "--patch_override", "64", "--save_name", name,
+            "--model_root", str(tmp_path / "model"), "--device",
+            "cuda"])).resolve()
+        os.makedirs(tmp_path / name)
+        trainer = Trainer(cfg, str(tmp_path / name), mesh)
+        metrics = trainer.train_steps(3)
+        state = state_tensors(trainer.state)
+        trainer.close()
+        return metrics, state
+
+    plain_metrics, plain = run("plain")
+    mesh = parallel.init_distributed(
+        backend="nccl", device="cuda:0", rank=0, world_size=1,
+        init_method=f"file://{tmp_path / 'store'}")
+    try:
+        metrics, state = run("nccl", mesh)
+    finally:
+        mesh.close()
+    assert state.keys() == plain.keys()
+    assert [k for k in state if not torch.equal(state[k], plain[k])] == []
+    for m, want in zip(metrics, plain_metrics):
+        for k in want:
+            np.testing.assert_array_equal(m[k], want[k], err_msg=k)

@@ -8,8 +8,10 @@ is kept, backed by a dataclass, plus `--device`.
 Flags that only shape the JAX package's TPU program are accepted and
 ignored, because they compute the same function: `pack_l1` and
 `split_up` (layout forms of the same UNet), `unroll_steps` (steps per
-dispatch), `num_devices` (mesh size). `amp=1` means bf16 autocast on
-CUDA with f32 parameters and f32 BatchNorm statistics.
+dispatch). `num_devices` names the data-parallel mesh size, which in the
+port is the number of ranks torchrun starts: any other value raises
+(parallel.check_num_devices). `amp=1` means bf16 autocast on CUDA with
+f32 parameters and f32 BatchNorm statistics.
 """
 
 import argparse
@@ -121,7 +123,7 @@ class TrainConfig:
     # --- extensions (not in the reference CLI) ---
     data_root: Optional[str] = None     # override the hardcoded data path
     model_root: str = "../model"        # snapshot parent dir (train.py:965)
-    num_devices: Optional[int] = None   # cap the data-parallel mesh size
+    num_devices: Optional[int] = None   # data-parallel mesh size (= ranks)
     eval_batch: int = 8                 # padded eval batch (ref uses bs=1)
     log_interval: int = 50              # host metric fetch cadence
     profile_dir: Optional[str] = None   # accepted; profiling not ported yet
@@ -139,7 +141,8 @@ class TrainConfig:
     # convs). Same function as the plain UNet: accepted and ignored.
     pack_l1: int = 1
     split_up: int = 1
-    # "cuda" (default) or "cpu"; there is no silent fallback.
+    # "cuda" (default; cuda:LOCAL_RANK under torchrun), "cuda:N" or "cpu";
+    # there is no silent fallback.
     device: str = "cuda"
 
     def profile(self) -> DatasetProfile:
@@ -226,7 +229,8 @@ def build_parser(default_dataset="BUSI", mnms=False) -> argparse.ArgumentParser:
     parser.add_argument("--model_root", type=str, default="../model",
                         help="snapshot parent directory")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="cap the data-parallel mesh size")
+                        help="data-parallel mesh size; must equal the "
+                             "number of ranks torchrun starts")
     parser.add_argument("--eval_batch", type=int, default=8)
     parser.add_argument("--log_interval", type=int, default=50)
     parser.add_argument("--profile_dir", type=str, default=None,
@@ -250,8 +254,8 @@ def build_parser(default_dataset="BUSI", mnms=False) -> argparse.ArgumentParser:
                         help="TPU layout option of the JAX UNet; accepted "
                              "and ignored (same function)")
     parser.add_argument("--device", type=str, default="cuda",
-                        choices=["cuda", "cpu"],
-                        help="cuda (default; raises if absent) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK under "
+                             "torchrun; raises if absent), cuda:N or cpu")
     return parser
 
 

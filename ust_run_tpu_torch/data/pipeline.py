@@ -11,6 +11,8 @@ step is a couple of numpy gathers.
 import numpy as np
 import torch
 
+from ust_run_tpu_torch.parallel.mesh import shard_slice
+
 
 class BatchPipeline:
     """Infinite shuffled batch iterator over a SegmentationDataset."""
@@ -75,19 +77,27 @@ class TestLoader:
 
     The reference evaluates with batch_size=1 (train.py:493); here samples
     are packed into fixed `batch` chunks (padded at the tail, with a
-    validity mask) so every forward sees one shape.
+    validity mask) so every forward sees one shape. `rows` (default: all)
+    are the dataset indices it visits, in order.
     """
 
     __test__ = False  # keep pytest from collecting this as a test class
 
-    def __init__(self, dataset, batch):
+    def __init__(self, dataset, batch, rows=None):
         self.ds = dataset
         self.batch = batch
+        self.rows = np.arange(len(dataset)) if rows is None \
+            else np.asarray(rows, np.int64)
+
+    def shard(self, rank, world):
+        """The loader over this rank's contiguous share of the rows."""
+        return TestLoader(self.ds, self.batch,
+                          self.rows[shard_slice(len(self.rows), rank, world)])
 
     def __iter__(self):
-        n = len(self.ds)
+        n = len(self.rows)
         for start in range(0, n, self.batch):
-            idx = np.arange(start, min(start + self.batch, n))
+            idx = self.rows[start:start + self.batch]
             pad = self.batch - len(idx)
             pidx = np.concatenate([idx, np.zeros(pad, np.int64)]) if pad \
                 else idx
@@ -102,4 +112,4 @@ class TestLoader:
             }
 
     def __len__(self):
-        return (len(self.ds) + self.batch - 1) // self.batch
+        return (len(self.rows) + self.batch - 1) // self.batch

@@ -17,8 +17,14 @@ The forward runs in eval mode (running BN statistics) under
 the loss are per sample, so a padded tail batch contributes exactly what
 the reference's batch-size-1 loop does. Only the boolean maps the boundary
 metrics need go to the host, and their C++ engine runs on one worker
-thread while the main thread queues the next batch's forward. The mesh
-padding of the JAX evaluator has no counterpart on one card.
+thread while the main thread queues the next batch's forward.
+
+With a data-parallel `mesh`, each rank evaluates a contiguous share of
+each domain's samples in padded batches of its own (the counterpart of
+the JAX evaluator's padded sharded batches, evaluator.py:51-68); the
+per-domain sums of per-sample loss, dice and boundary metrics and the
+sample counts go through one all-reduce, so every rank holds the means
+one process computes.
 """
 
 import logging
@@ -35,12 +41,19 @@ from ust_run_tpu_torch.utils.boundary_native import boundary_metrics
 
 
 class Evaluator:
-    def __init__(self, hp, test_loaders, parts, device):
+    def __init__(self, hp, test_loaders, parts, device, mesh=None):
         self.hp = hp
         self.loaders = test_loaders
         self.parts = parts
         self.n_part = len(parts)
         self.device = torch.device(device)
+        self.mesh = mesh
+
+    def local(self, loader):
+        """The loader over this rank's share of the samples."""
+        if self.mesh is None:
+            return loader
+        return loader.shard(self.mesh.rank, self.mesh.world)
 
     @torch.no_grad()
     def forward(self, model, img_u8, lab_u8):
@@ -112,16 +125,14 @@ class Evaluator:
     def _run(self, model, epoch, writer, ema, pool):
         model_name = "ema" if ema else "stu"
         np_ = self.n_part
-        val = np.zeros((5, np_))        # dice, dc, jc, hd, asd
-        val_loss = 0.0
-        domains = []
+        # per domain: the sums of dice, dc, jc, hd, asd, loss; the count
+        sums = np.zeros((len(self.loaders), 5 * np_ + 2))
         for d_i, loader in enumerate(self.loaders):
-            domain_code = d_i + 1
             dom = np.zeros((5, np_))
             dom_loss = 0.0
             n = 0
             futures = []
-            for batch in loader:
+            for batch in self.local(loader):
                 valid = batch["valid"]
                 dice, loss, pred_parts, mask_parts = self.forward(
                     model, batch["image"], batch["label"])
@@ -134,8 +145,18 @@ class Evaluator:
                     mask_parts[vt].cpu().numpy()))
             for f in futures:
                 dom[1:] += f.result()
-            dom /= n
-            dom_loss /= max(n, 1)
+            sums[d_i] = np.concatenate([dom.ravel(), [dom_loss, n]])
+        if self.mesh is not None:
+            sums = self.mesh.sum_numpy(sums)
+
+        val = np.zeros((5, np_))        # dice, dc, jc, hd, asd
+        val_loss = 0.0
+        domains = []
+        for d_i, row in enumerate(sums):
+            domain_code = d_i + 1
+            n = row[-1]
+            dom = row[:5 * np_].reshape(5, np_) / n
+            dom_loss = row[-2] / max(n, 1)
             domains.append({"loss": dom_loss, "metrics": dom})
             val += dom
             val_loss += dom_loss

@@ -14,7 +14,13 @@ ust_run_tpu/engine/trainer.py).
   * EMA and student evaluation every epoch with best-dice tracking and
     the best-student snapshot (train.py:913-954; trainer.py:463-532);
   * the rolling checkpoint, written by a worker thread from a host copy,
-    and `--load` resume (train.py:542-548, 955-958).
+    and `--load` resume (train.py:542-548, 955-958);
+  * data parallelism (trainer.py:104-110): with a `parallel.DataMesh`,
+    one process per rank on cuda:LOCAL_RANK (or the device `--device`
+    names), both models' BatchNorm synchronised over the ranks, each step
+    sharded as parallel/mesh.py sets out and the evaluation split over
+    the ranks. Every rank holds the same state and restores `--load`;
+    rank 0 alone writes the log, the metric writer and the checkpoints.
 """
 
 import logging
@@ -24,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from ust_run_tpu_torch import parallel
 from ust_run_tpu_torch.config import TrainConfig
 from ust_run_tpu_torch.data.datasets import SegmentationDataset
 from ust_run_tpu_torch.data.pipeline import BatchPipeline, TestLoader
@@ -69,7 +76,7 @@ class _Pending:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, snapshot_path):
+    def __init__(self, cfg: TrainConfig, snapshot_path, mesh=None):
         if cfg.model == "unet2d_dsbn":
             # DSBN picks its statistics by a per-call domain label, which
             # the step never supplies (unet2d.py:58): the JAX package
@@ -79,9 +86,14 @@ class Trainer:
                 "BatchNorm2d layers need a domain_label that the SSL step "
                 "does not pass; build it with build_model and call it with "
                 "one")
+        parallel.check_num_devices(cfg.num_devices,
+                                   1 if mesh is None else mesh.world)
         self.cfg = cfg
         self.snapshot_path = snapshot_path
-        self.device = resolve_device(cfg.device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        self.device = resolve_device(cfg.device if mesh is None
+                                     else mesh.device)
         set_numerics()
         p = cfg.profile()
         self.profile_ = p
@@ -104,7 +116,7 @@ class Trainer:
             cfg.dataset, p, cfg.data_root, "test", -1, [i]), cfg.eval_batch)
             for i in domains]
         self.evaluator = Evaluator(self.hp, test_loaders, list(p.parts),
-                                   self.device)
+                                   self.device, mesh)
 
         # the decoded corpus goes to the device ONCE; steps receive indices
         corpus = {"lb_img": self.lb_ds.images, "lb_lab": self.lb_ds.labels,
@@ -120,9 +132,13 @@ class Trainer:
                             for _ in range(2))
         self.state = create_train_state(self.hp, cfg.seed, self.device,
                                         student, teacher)
+        if mesh is not None:
+            for model in (self.state.student, self.state.teacher):
+                parallel.sync_batchnorm(model, mesh)
         if cfg.model.startswith("deeplabv2"):
             self._load_pretrained_backbone()
-        self.writer = MetricWriter(os.path.join(snapshot_path, "log"))
+        self.writer = MetricWriter(os.path.join(snapshot_path, "log")) \
+            if self.is_main else None
 
         # best-dice bookkeeping (train.py:526-535)
         n_part = p.n_part
@@ -215,7 +231,8 @@ class Trainer:
         out = []
         for _ in range(n):
             idx, dev_idx = self._next_batch()
-            metrics = step_fn(self.state, self.device_data, dev_idx, self.hp)
+            metrics = step_fn(self.state, self.device_data, dev_idx, self.hp,
+                              self.mesh)
             self.iter_num += 1
             if self._pending is not None:
                 out.append(self._drain(self._pending))
@@ -249,7 +266,8 @@ class Trainer:
         try:
             self._ckpt_io.close()
         finally:
-            self.writer.close()
+            if self.writer is not None:
+                self.writer.close()
 
     # ------------------------------------------------------------------
     def _log_epoch(self, parts):
@@ -296,8 +314,9 @@ class Trainer:
             mt["all"][i].update(float(m["ulb_dice"][i]))
             mt["lq"][i].update(float(m["lq_dice"][i]))
 
-        if it % cfg.log_interval == 0 or it % cfg.num_eval_iter == 0:
-            w = self.writer
+        w = self.writer
+        if w is not None and (it % cfg.log_interval == 0
+                              or it % cfg.num_eval_iter == 0):
             for i, pn in enumerate(parts):
                 w.add_scalar(f"train/ulb_{pn}_dice", m["ulb_dice"][i], it)
             w.add_scalar("train/mask", m["mask_ratio"], it)
@@ -373,7 +392,8 @@ class Trainer:
                 text += ", %s_dice: %f" % (pn, self.stu_dice_of_best_avg[i])
         logging.info(text)
 
-        if save:         # --eval reports only and never touches artifacts
+        # --eval reports only and never touches artifacts; rank 0 writes
+        if save and self.is_main:
             payload = ckpt.host_copy(ckpt.state_payload(
                 self.state, epoch_num + 1,
                 (self.best_avg_dice, self.best_avg_dice_iter,

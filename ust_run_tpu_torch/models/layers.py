@@ -42,16 +42,21 @@ def _uniform_(t, bound, generator):
 
 
 @functools.lru_cache(maxsize=None)
-def _group_consts(group_sizes, hw, device):
-    """Per-call constants, made once per shape: the (n,) group id of each
-    sample, the (g, 1) group sizes, and the (g,) unbiased-variance factor
-    cnt / max(cnt - 1, 1) with cnt = size * h * w."""
+def _group_consts(group_sizes, total, hw, device):
+    """Per-call constants, made once per shape, for a batch of the groups
+    `group_sizes` cut from groups of `total` samples (the same sizes
+    without a mesh): the (n,) group id of each sample, the (g, n)
+    averaging matrix (row i holds 1/total_i at group i's samples, so that
+    its product with the per-sample moments is the per-group mean, one
+    product with no atomics), and the (g,) unbiased-variance factor
+    cnt / max(cnt - 1, 1) with cnt = total * h * w."""
     seg = np.repeat(np.arange(len(group_sizes)), group_sizes)
-    sizes = np.asarray(group_sizes, np.float32)[:, None]
-    cnt = np.asarray(group_sizes, np.float32) * np.float32(hw)
+    avg = np.zeros((len(group_sizes), len(seg)), np.float32)
+    avg[seg, np.arange(len(seg))] = 1.0 / np.asarray(total, np.float32)[seg]
+    cnt = np.asarray(total, np.float32) * np.float32(hw)
     corr = cnt / np.maximum(cnt - np.float32(1.0), np.float32(1.0))
     return (torch.as_tensor(seg, dtype=torch.int64, device=device),
-            torch.as_tensor(sizes, device=device),
+            torch.as_tensor(avg, device=device),
             torch.as_tensor(corr, device=device))
 
 
@@ -70,7 +75,17 @@ class GroupedBatchNorm(nn.Module):
     affine is applied as x*inv - shift in the compute dtype. Parameter
     and buffer names follow torch.nn.BatchNorm2d, so state_dicts keep
     upstream's layout.
+
+    With `mesh` set (parallel.sync_batchnorm), the batch is this rank's
+    slice of each group: `group_sizes` is the parallel.GroupSizes that
+    mesh.shard returned (local sizes, possibly 0, and the global ones).
+    Each rank averages its samples' moments over the global sizes and the
+    averages are summed over the ranks, forward and backward
+    (mesh.sum_sharded): the statistics, and so the running statistics
+    every rank folds, are those of the global groups.
     """
+
+    mesh = None
 
     def __init__(self, num_features, momentum=0.1, eps=1e-5):
         super().__init__()
@@ -94,23 +109,25 @@ class GroupedBatchNorm(nn.Module):
         if group_sizes is None:
             assert n % groups == 0, f"batch {n} not divisible by {groups}"
             group_sizes = (n // groups,) * groups
+        total = group_sizes
+        if self.mesh is not None:
+            assert hasattr(group_sizes, "total"), \
+                "a synchronised GroupedBatchNorm takes mesh.shard's GroupSizes"
+            total = group_sizes.total
         group_sizes = tuple(group_sizes)
         g = len(group_sizes)
         assert sum(group_sizes) == n, (group_sizes, n)
         equal = len(set(group_sizes)) == 1
-        seg, sizes, corr = _group_consts(group_sizes, h * w, x.device)
+        seg, avg, corr = _group_consts(group_sizes, tuple(total), h * w,
+                                       x.device)
 
         with torch.autocast(device_type=x.device.type, enabled=False):
             m1 = torch.mean(x, dim=(2, 3), dtype=torch.float32)    # (n, c)
             m2 = torch.mean(torch.square(x.float()), dim=(2, 3))
-            if equal:
-                mean = m1.reshape(g, n // g, c).mean(dim=1)         # (g, c)
-                mean2 = m2.reshape(g, n // g, c).mean(dim=1)
-            else:
-                mean = torch.zeros(g, c, device=x.device).index_add_(
-                    0, seg, m1) / sizes
-                mean2 = torch.zeros(g, c, device=x.device).index_add_(
-                    0, seg, m2) / sizes
+            mean, mean2 = avg @ m1, avg @ m2                        # (g, c)
+            if self.mesh is not None:
+                mean, mean2 = self.mesh.sum_sharded(
+                    torch.cat([mean, mean2], dim=1)).split(c, dim=1)
             var = torch.clamp(mean2 - torch.square(mean), min=0.0)
             inv = torch.rsqrt(var + self.eps) * self.weight         # (g, c)
             if equal:

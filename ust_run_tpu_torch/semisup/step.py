@@ -13,6 +13,15 @@ drive each:
     curriculum queue and LQ carry, and the packed metrics.
 `step_fn` chains them with the backward pass.
 
+Each part takes an optional `mesh` (parallel.DataMesh): N ranks then
+compute what one process computes with the same global batch. Everything
+in `build_inputs` and `apply_update` is replicated (every rank draws the
+same numbers); the two model calls are sharded, each rank taking a
+contiguous slice of each group (the LQ group of 1 lives on one rank), and
+their logits are gathered where the replicated part needs them; the loss
+terms reduce their partial sums over the ranks and the gradients are
+summed before SGD (parallel/mesh.py). Without a mesh, nothing changes.
+
 Nothing in the step waits on the device: shapes are fixed, choices are
 `torch.where`, scalars that depend on the step count are computed on the
 host, and host draws (RNG kernel seeds, CutMix boxes) come from the CPU
@@ -179,16 +188,27 @@ def unpack_metrics(vec, hp):
     return out
 
 
-def teacher_forward(teacher, tea_in):
+def teacher_forward(teacher, tea_in, mesh=None):
     """The EMA model's 3-group train-mode forward (train.py:643-647): its
     BN running statistics fold the three groups, as the JAX step's
-    `tea_batch_stats`."""
+    `tea_batch_stats`. With `mesh`, each rank runs its slice of each group
+    and the logits are gathered onto every rank."""
     with torch.no_grad():
-        return teacher(tea_in, groups=3)
+        if mesh is None:
+            return teacher(tea_in, groups=3)
+        sizes = (tea_in.shape[0] // 3,) * 3
+        x, local = mesh.shard(tea_in, sizes)
+        return mesh.gather(teacher(x, group_sizes=local), sizes)
+
+
+def _shard(mesh, x, n):
+    """This rank's slice of a batch of n rows (all of it without a
+    mesh)."""
+    return x if mesh is None else mesh.shard(x, (n,))[0]
 
 
 @torch.no_grad()
-def build_inputs(state, data, idx, hp):
+def build_inputs(state, data, idx, hp, mesh=None):
     """Everything the loss consumes (step.py:253-398). `data`: the corpus
     on the device (uint8 lb_img (N1,S,S,C), lb_lab (N1,S,S,K), lb_dc,
     ulb_* likewise); `idx`: {'lb_idx', 'ulb_idx'} int64 on the device."""
@@ -256,7 +276,7 @@ def build_inputs(state, data, idx, hp):
     ulb_x_w_ul = ulb_x_w * (1 - img_box) + mix_img * img_box
     ulb_x_w_lu = mix_img * (1 - img_box) + ulb_x_w * img_box
     tea_logits = teacher_forward(
-        state.teacher, torch.cat([ulb_x_w, ulb_x_w_ul, ulb_x_w_lu]))
+        state.teacher, torch.cat([ulb_x_w, ulb_x_w_ul, ulb_x_w_lu]), mesh)
     logits_w, logits_w_ul, logits_w_lu = torch.split(tea_logits, b_ulb)
     pseudo_label, mask = _pseudo_from_logits(logits_w, hp)
     pl_w_ul, mask_w_ul = _pseudo_from_logits(logits_w_ul, hp)
@@ -320,10 +340,13 @@ def build_inputs(state, data, idx, hp):
         ratio_before=ratio_before, ratio_after=ratio_after)
 
 
-def loss_terms(state, inp, hp):
+def loss_terms(state, inp, hp, mesh=None):
     """The student's one 21-image, 6-group forward (train.py:668-674,
     699-702, 740) and the loss (train.py:816-838) -> (total, aux). The
-    LQ group's running-stat fold is conditional on `lq_valid`."""
+    LQ group's running-stat fold is conditional on `lq_valid`. With
+    `mesh`, the forward and the loss terms' sums cover this rank's slice
+    of each group; the terms are the global batch's and
+    `stu_logits_w` is gathered."""
     b_lb, b_ulb = hp.label_bs, hp.unlabel_bs
     stu_in = torch.cat([inp["ulb_x_w"], inp["lb_x_w"], inp["ulb_x_s_ul"],
                         inp["ulb_x_s_lu"], inp["ulb_x_s"], inp["lq_s"]])
@@ -331,29 +354,40 @@ def loss_terms(state, inp, hp):
     valid6 = torch.cat([torch.ones(5, dtype=torch.bool,
                                    device=stu_in.device),
                         inp["lq_valid"].reshape(1).to(torch.bool)])
-    logits = state.student(stu_in, group_sizes=sizes, group_valid=valid6)
+    local = sizes
+    if mesh is not None:
+        stu_in, local = mesh.shard(stu_in, sizes)
+    logits = state.student(stu_in, group_sizes=local, group_valid=valid6)
     (stu_logits_w, logits_lb, logits_ul, logits_lu, logits_s,
-     logits_lq) = torch.split(logits, list(sizes))
+     logits_lq) = torch.split(logits, list(local))
     cons_w = inp["cons_w"]
-    kw = dict(multilabel=hp.multilabel, n_classes=hp.num_classes)
+    kw = dict(multilabel=hp.multilabel, n_classes=hp.num_classes, mesh=mesh)
 
-    sup_loss = L.ce_plus_dice(logits_lb, inp["lb_mask"], **kw)
-    unsup_ul = L.ce_plus_dice(logits_ul, inp["pseudo_label_ul"],
-                              mask=inp["mask_ul"], **kw)
+    def mine(name, n=b_ulb):
+        return _shard(mesh, inp[name], n)
+
+    sup_loss = L.ce_plus_dice(logits_lb, mine("lb_mask", b_lb), rows=b_lb,
+                              **kw)
+    unsup_ul = L.ce_plus_dice(logits_ul, mine("pseudo_label_ul"),
+                              mask=mine("mask_ul"), rows=b_ulb, **kw)
     if hp.lq_loss:
         # opt-in: the LQ sample joins unsup_ul when valid (train.py:822-830)
         ul_with = L.ce_plus_dice(
             torch.cat([logits_ul, logits_lq]),
-            torch.cat([inp["pseudo_label_ul"], inp["pseudo_label_lq"]]),
-            mask=torch.cat([inp["mask_ul"], inp["mask_lq"]]), **kw)
+            torch.cat([mine("pseudo_label_ul"), mine("pseudo_label_lq", 1)]),
+            mask=torch.cat([mine("mask_ul"), mine("mask_lq", 1)]),
+            rows=b_ulb + 1, **kw)
         unsup_ul = torch.where(inp["lq_valid"], ul_with, unsup_ul)
-    unsup_lu = L.ce_plus_dice(logits_lu, inp["pseudo_label_lu"],
-                              mask=inp["mask_lu"], **kw)
-    unsup_s = L.ce_plus_dice(logits_s, inp["pseudo_label_w"],
-                             mask=inp["mask_w"], **kw)
+    unsup_lu = L.ce_plus_dice(logits_lu, mine("pseudo_label_lu"),
+                              mask=mine("mask_lu"), rows=b_ulb, **kw)
+    unsup_s = L.ce_plus_dice(logits_s, mine("pseudo_label_w"),
+                             mask=mine("mask_w"), rows=b_ulb, **kw)
     total = sup_loss + cons_w * (unsup_ul + unsup_lu
                                  + cons_w * unsup_s)            # :838
-    aux = dict(stu_logits_w=stu_logits_w.detach(), sup_loss=sup_loss,
+    stu_logits_w = stu_logits_w.detach()
+    if mesh is not None:
+        stu_logits_w = mesh.gather(stu_logits_w, (b_ulb,))
+    aux = dict(stu_logits_w=stu_logits_w, sup_loss=sup_loss,
                unsup_ul=unsup_ul, unsup_lu=unsup_lu, unsup_s=unsup_s)
     return total, aux
 
@@ -435,10 +469,13 @@ def update_queue(queue, choice_th, hardness, ulb_x_w, pseudo_label,
 
 
 @torch.no_grad()
-def apply_update(state, inp, loss, aux, hp):
+def apply_update(state, inp, loss, aux, hp, mesh=None):
     """After backward: SGD, EMA, hardness, queue, LQ carry, metrics
-    (step.py:464-530). Returns the packed metric vector on the device."""
+    (step.py:464-530). Returns the packed metric vector on the device.
+    With `mesh`, the ranks' gradient shares are summed first."""
     dev = loss.device
+    if mesh is not None:
+        mesh.all_reduce_grads(state.student.parameters())
     lr = lr_at(state.step, hp.base_lr, hp.max_iterations)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -489,10 +526,10 @@ def apply_update(state, inp, loss, aux, hp):
     return pack_metrics(metrics, hp)
 
 
-def step_fn(state, data, idx, hp):
+def step_fn(state, data, idx, hp, mesh=None):
     """One training step; returns the packed metrics (on the device)."""
-    inp = build_inputs(state, data, idx, hp)
+    inp = build_inputs(state, data, idx, hp, mesh)
     state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = loss_terms(state, inp, hp)
+    loss, aux = loss_terms(state, inp, hp, mesh)
     loss.backward()
-    return apply_update(state, inp, loss, aux, hp)
+    return apply_update(state, inp, loss, aux, hp, mesh)

@@ -12,7 +12,10 @@ deeplabv2, deeplabv2_r50), rebuilds the per-domain test loaders, loads
 port's file or upstream's; `--load_path` is ignored there too) and runs
 one evaluation pass, logged to `test_log.txt` and stdout. `--save_img`
 then writes each test image's prediction and ground-truth overlays to
-`<snapshot>/pred_images/<name>` (JAX test.py:86-97).
+`<snapshot>/pred_images/<name>` (JAX test.py:86-97). Under `torchrun
+--nproc_per_node N` the test samples are split over the ranks (every rank
+returns the same metrics), rank 0 logs, and each overlay is written once,
+by the rank that evaluated its image.
 """
 
 import argparse
@@ -27,6 +30,7 @@ from ust_run_tpu_torch.data.datasets import SegmentationDataset
 from ust_run_tpu_torch.data.pipeline import TestLoader
 from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.evaluator import Evaluator
+from ust_run_tpu_torch.parallel import init_distributed
 from ust_run_tpu_torch.semisup.state import build_model
 from ust_run_tpu_torch.semisup.step import HyperParams
 from ust_run_tpu_torch.utils import visualize
@@ -50,14 +54,26 @@ def build_parser():
     parser.add_argument("--model_root", type=str, default="../model")
     parser.add_argument("--eval_batch", type=int, default=8)
     parser.add_argument("--device", type=str, default="cuda",
-                        choices=["cuda", "cpu"],
-                        help="cuda (default; raises if absent) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK under "
+                             "torchrun; raises if absent), cuda:N or cpu")
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)     # raise before touching any file
+    resolve_device(args.device)              # raise before touching any file
+    mesh = init_distributed(device=args.device)
+    try:
+        return evaluate(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def evaluate(args, mesh=None):
+    """One evaluation pass from parsed flags on `mesh` (None: one
+    process); returns the per-part dice."""
+    device = resolve_device(args.device if mesh is None else mesh.device)
     cfg = TrainConfig(dataset=args.dataset, save_name=args.save_name,
                       model=args.model, domain_num=args.domain_num,
                       data_root=args.data_root, model_root=args.model_root,
@@ -67,9 +83,11 @@ def main(argv=None):
                                  cfg.save_name) + "/"
     os.makedirs(snapshot_path, exist_ok=True)
     root = logging.getLogger()
-    root.setLevel(logging.INFO)
-    handlers = [logging.FileHandler(snapshot_path + "/test_log.txt"),
-                logging.StreamHandler(sys.stdout)]
+    handlers = []
+    if mesh is None or mesh.rank == 0:
+        root.setLevel(logging.INFO)
+        handlers = [logging.FileHandler(snapshot_path + "/test_log.txt"),
+                    logging.StreamHandler(sys.stdout)]
     for h in handlers:
         h.setFormatter(logging.Formatter(
             "[%(asctime)s.%(msecs)03d] %(message)s", datefmt="%H:%M:%S"))
@@ -86,7 +104,8 @@ def main(argv=None):
                                  f"{cfg.model}_avg_dice_best_model.pth")
         ckpt.restore_onto(model, ckpt.load_best_model(best_path))
         model = model.to(device, memory_format=torch.channels_last)
-        evaluator = Evaluator(hp, loaders, list(profile.parts), device)
+        evaluator = Evaluator(hp, loaders, list(profile.parts), device,
+                              mesh)
         dice = evaluator.run(model, 1, writer=None, ema=True)
         if args.save_img:
             save_overlays(evaluator, model,
@@ -99,11 +118,12 @@ def main(argv=None):
 
 
 def save_overlays(evaluator, model, out_dir):
-    """Every test image's prediction and ground truth overlaid side by side
+    """Every test image of this rank's share (all of them without a mesh):
+    its prediction and ground truth overlaid side by side
     (utils/visualize.draw_mask_and_save), in eval mode."""
     model.eval()
     for loader in evaluator.loaders:
-        for batch in loader:
+        for batch in evaluator.local(loader):
             _, _, pred_parts, mask_parts = evaluator.forward(
                 model, batch["image"], batch["label"])
             pp, mp = pred_parts.cpu().numpy(), mask_parts.cpu().numpy()

@@ -12,6 +12,11 @@ starts from `<pretrained_root>/<arch>.pth` where the user has put that
 file, else from its random init. `--eval` runs one evaluation of
 the EMA and student models and saves nothing (train.py:17-20); `--load`
 resumes from `<model_root>/<dataset>/<save_name>/checkpoint.pth`.
+
+Data parallel over N GPUs of a node, one process each (the global batch
+stays `label_bs + unlabel_bs`; `--num_devices`, if given, must equal N):
+
+    torchrun --nproc_per_node N -m ust_run_tpu_torch.train --dataset ...
 """
 
 import sys
@@ -19,19 +24,31 @@ import sys
 from ust_run_tpu_torch.cli import bootstrap
 from ust_run_tpu_torch.config import build_parser
 from ust_run_tpu_torch.engine.trainer import Trainer
+from ust_run_tpu_torch.parallel import init_distributed
 from ust_run_tpu_torch.utils.device import resolve_device
 
 
 def main(argv=None):
-    return run(build_parser().parse_args(argv), __file__)
+    return launch(build_parser().parse_args(argv), __file__)
 
 
-def run(args, script_path):
-    """Train (or, with --eval, evaluate) from parsed flags; returns the
-    trainer."""
+def launch(args, script_path):
+    """`run` inside the process group that torchrun's environment asks
+    for (none in a plain launch), torn down at the end."""
     resolve_device(args.device)          # raise before touching any file
-    cfg, snapshot_path = bootstrap(args, script_path)
-    trainer = Trainer(cfg, snapshot_path)
+    mesh = init_distributed(device=args.device)
+    try:
+        return run(args, script_path, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def run(args, script_path, mesh=None):
+    """Train (or, with --eval, evaluate) from parsed flags on `mesh`
+    (None: one process); returns the trainer."""
+    cfg, snapshot_path = bootstrap(args, script_path, mesh)
+    trainer = Trainer(cfg, snapshot_path, mesh)
     if cfg.eval:
         trainer.evaluate_and_checkpoint(-1, 0, save=False)
         trainer.close()

@@ -5,19 +5,20 @@
         --save_name run1 --device cuda
 
 The flags of the port's train entry with `--dataset` fixed to MNMS (the
-288 px, 3-part profile); the same trainer, `--eval` and `--load`.
+288 px, 3-part profile); the same trainer, `--eval` and `--load`, and the
+same `torchrun --nproc_per_node N` launch.
 """
 
 import sys
 
 from ust_run_tpu_torch.config import build_parser
-from ust_run_tpu_torch.train import run
+from ust_run_tpu_torch.train import launch
 
 
 def main(argv=None):
     args = build_parser(mnms=True).parse_args(argv)
     args.dataset = "MNMS"
-    return run(args, __file__)
+    return launch(args, __file__)
 
 
 if __name__ == "__main__":

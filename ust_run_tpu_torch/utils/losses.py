@@ -13,6 +13,14 @@ Reduction quirks of the reference kept exactly:
   * `DiceLossWithMask` is one global soft dice over the whole volume in
     multilabel mode, per-class global dice otherwise, and leaves class 0
     unmasked (losses.py:207-213).
+
+Every loss is a ratio of sums over the batch, so each is computed in two
+halves: the sums of a batch (the CE mean, the dice sums of
+`_*_dice_sums`), then the ratios (`_soft_dice`, `_multiclass_dice`).
+Under a data-parallel mesh `ce_plus_dice` sums the ranks' shares of the
+CE mean and their dice sums before the ratios (`mesh.sum_replicated`),
+which gives the loss of the global batch; averaging the ranks' losses
+would not.
 """
 
 import torch
@@ -21,8 +29,8 @@ import torch.nn.functional as F
 _SMOOTH = 1e-10  # losses.py:218,228
 
 
-def _soft_dice(score, target, mask=None):
-    """1 - (2*sum(s*t)+eps) / (sum(t*t)+sum(s*s)+eps), over all axes."""
+def _dice_sums(score, target, mask=None):
+    """(sum(s*t), sum(t*t), sum(s*s)) over all axes."""
     score = score.to(torch.float32)
     target = target.to(torch.float32)
     if mask is not None:
@@ -34,27 +42,49 @@ def _soft_dice(score, target, mask=None):
         inter = torch.sum(score * target)
         t_sum = torch.sum(target * target)
         s_sum = torch.sum(score * score)
+    return inter, t_sum, s_sum
+
+
+def _soft_dice(inter, t_sum, s_sum):
+    """1 - (2*sum(s*t)+eps) / (sum(t*t)+sum(s*s)+eps)."""
     return 1.0 - (2.0 * inter + _SMOOTH) / (s_sum + t_sum + _SMOOTH)
+
+
+def _multilabel_dice_sums(logits, target, mask=None):
+    return _dice_sums(torch.sigmoid(logits.to(torch.float32)), target, mask)
+
+
+def _multiclass_dice_sums(logits, target, n_classes, mask=None):
+    """Each class's `_dice_sums`; class 0 is never masked."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    sums = []
+    for c in range(n_classes):
+        tgt_c = (target == c).to(torch.float32)
+        mask_c = None
+        if mask is not None and c > 0:
+            mask_c = (mask[..., 0] == 1).to(torch.float32)
+        sums.append(_dice_sums(probs[..., c], tgt_c, mask_c))
+    return sums
+
+
+def _multiclass_dice(sums):
+    loss = 0.0
+    for s in sums:
+        loss = loss + _soft_dice(*s)
+    return loss / len(sums)
 
 
 def dice_loss_multilabel(logits, target, mask=None):
     """Sigmoid probabilities, one global dice (losses.py:236-249)."""
-    return _soft_dice(torch.sigmoid(logits.to(torch.float32)), target, mask)
+    return _soft_dice(*_multilabel_dice_sums(logits, target, mask))
 
 
 def dice_loss_multiclass(logits, target, n_classes, mask=None):
     """Softmax probabilities, per-class global dice averaged over classes;
     class 0 is never masked (losses.py:207-213). target (B,H,W) int,
     mask (B,H,W,1) or None."""
-    probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    loss = 0.0
-    for c in range(n_classes):
-        tgt_c = (target == c).to(torch.float32)
-        mask_c = None
-        if mask is not None and c > 0:
-            mask_c = (mask[..., 0] == 1).to(torch.float32)
-        loss = loss + _soft_dice(probs[..., c], tgt_c, mask_c)
-    return loss / n_classes
+    return _multiclass_dice(_multiclass_dice_sums(logits, target, n_classes,
+                                                  mask))
 
 
 def bce_with_logits(logits, target):
@@ -75,16 +105,34 @@ def softmax_ce(logits, target):
     return -torch.sum(logp * onehot, dim=-1)
 
 
-def ce_plus_dice(logits, target, *, multilabel, n_classes, mask=None):
+def ce_plus_dice(logits, target, *, multilabel, n_classes, mask=None,
+                 mesh=None, rows=None):
     """`ce.mean() + dice(...)` (train.py:816-838); masked CE is
-    `(ce * mask).mean()` over all elements."""
+    `(ce * mask).mean()` over all elements. With `mesh`, the arguments are
+    this rank's slice (possibly empty) of a global batch of `rows` samples
+    and the loss is the global batch's: this rank's share of the CE mean
+    and its dice sums are summed over the ranks before the ratios."""
     if multilabel:
         ce = bce_with_logits(logits, target)
         if mask is not None:
             ce = ce * mask.to(torch.float32)
-        return torch.mean(ce) + dice_loss_multilabel(logits, target, mask)
-    ce = softmax_ce(logits, target)
-    if mask is not None:
-        ce = ce * mask[..., 0].to(torch.float32)
-    return torch.mean(ce) + dice_loss_multiclass(logits, target, n_classes,
-                                                 mask)
+        sums = [_multilabel_dice_sums(logits, target, mask)]
+    else:
+        ce = softmax_ce(logits, target)
+        if mask is not None:
+            ce = ce * mask[..., 0].to(torch.float32)
+        sums = _multiclass_dice_sums(logits, target, n_classes, mask)
+    if mesh is None:
+        ce_mean = torch.mean(ce)
+    else:
+        # the mean times this rank's share of the elements: at world 1
+        # exactly torch.mean, so one rank computes what no mesh computes
+        ce_mean = torch.mean(ce) * (ce.numel() / (rows * ce[0].numel())) \
+            if ce.numel() else torch.sum(ce)
+        flat = mesh.sum_replicated(
+            torch.stack([ce_mean] + [t for s in sums for t in s]))
+        ce_mean, *rest = flat.unbind()
+        sums = [rest[i:i + 3] for i in range(0, len(rest), 3)]
+    if multilabel:
+        return ce_mean + _soft_dice(*sums[0])
+    return ce_mean + _multiclass_dice(sums)
