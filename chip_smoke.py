@@ -14,7 +14,7 @@ Phases, one line each (or a few); any failure exits non-zero:
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar (its timing is phase 14);
+       ragged one, and the statistical bar (its timing is phase 15);
      - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
        (ragged image edges, a partial last K chunk with C > 64, a partial
        N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
@@ -93,7 +93,16 @@ Phases, one line each (or a few); any failure exits non-zero:
      `deeplabv2_r50`, float32, 3 steps: replicas bit-equal, and one
      sharded evaluation equal to each rank's evaluation of every sample
      alone within 1e-6;
- 14. RNG timing: the uniform-field RNG's and torch.rand's device time
+ 14. instruments, fundus at phase 5's full width: (a) the train entry
+     with UST_STOP_AFTER_ITERS=6 and epochs of 3 stops after two
+     evaluations, its last lr that of the 30k budget; (b) its
+     UST_WNORM_LOG lines are there and finite; (d) its --profile_dir trace
+     holds the RNG kernel's two launches of steps 2-3; (c) a
+     `--base_lr 300` run of the entry exits 3 with a UST_NAN_DEBUG dump
+     (UST_NAN_SNAP 2), and `python -m ust_run_tpu_torch.nan_replay`
+     reproduces its failing iteration on the card (exit 1) and names the
+     first module with a non-finite output;
+ 15. RNG timing: the uniform-field RNG's and torch.rand's device time
      per kernel (torch.profiler) apart from the host's cost per call
      (host clock). Last, so that no phase timed before it runs in a
      process that torch.profiler has traced.
@@ -174,6 +183,10 @@ FUSED_SHAPES = [("L1 student", 21, 256, 256, 64, 64),
                 ("L3 student", 21, 64, 64, 256, 256)]
 RNG_SHAPE = (16, 256)             # the main path's fields: (n, S)
 RNG_SEED = 0x5EED_0F_F1E1D5
+# phase 14 (c): a --base_lr that drives the loss non-finite within a few
+# steps (step 8 on the H100, 6 at patch 32 on the CPU), and the iterations
+# it may take
+NAN_LR, NAN_MAX_ITERS = "300", 30
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 
@@ -1477,6 +1490,141 @@ def phase_data_parallel(card, work, main_img_s):
             "gloo_deeplabv2_r50": [o["launches"] for o in z]}
 
 
+def train_entry(argv, env):
+    """`python -m ust_run_tpu_torch.train` in this process, with `env` set
+    and the entry's log handlers silent (and removed after): (the trainer,
+    or the code of the SystemExit it raised; its log messages)."""
+    import contextlib
+    import io
+    import logging
+    from ust_run_tpu_torch import train
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    os.environ.update(env)
+    try:
+        with LogRecords() as log, contextlib.redirect_stdout(io.StringIO()):
+            try:
+                out = train.main(argv)
+            except SystemExit as e:
+                out = e.code
+    finally:
+        for k in env:
+            del os.environ[k]
+        for h in set(root.handlers) - set(handlers):
+            root.removeHandler(h)
+            h.close()
+    return out, "\n".join(log.messages)
+
+
+def phase_instruments(card, work):
+    """The trainer's run control and forensics at phase 5's full width,
+    through the train entry: (a) UST_STOP_AFTER_ITERS=6 with epochs of 3
+    stops after two evaluations on the 30k budget's lr, (b) UST_WNORM_LOG's
+    lines are there and finite, (d) --profile_dir's trace holds the RNG
+    kernel of steps 2-3 (one run); (c) a large --base_lr run exits 3 with
+    a UST_NAN_DEBUG dump, and `python -m ust_run_tpu_torch.nan_replay`
+    reproduces its failing iteration on the card and names a module.
+    Returns the RNG kernel's launches in (a)."""
+    import re
+
+    import torch
+    from ust_run_tpu_torch.ops import rng
+    from ust_run_tpu_torch.semisup.state import lr_at
+
+    root = os.path.join(work, "fundus")
+    prof = os.path.join(work, "trace")
+    rng.launches = 0
+    trainer, text = train_entry(
+        train_argv("fundus", root, work, "stop", "--num_eval_iter", "3",
+                   "--profile_dir", prof),
+        {"UST_STOP_AFTER_ITERS": "6", "UST_WNORM_LOG": "1"})
+    launches = rng.launches
+    payload = torch.load(os.path.join(trainer.snapshot_path,
+                                      "checkpoint.pth"), map_location="cpu",
+                         weights_only=True)
+    lr = payload["optimizer"]["param_groups"][0]["lr"]
+    full = lr_at(5, 0.03, 30000)          # the 6th update, 30k budget
+    if (trainer.cfg.max_iterations, payload["step"], payload["epoch"],
+            text.count("test stu model"), launches) != (30000, 6, 2, 2, 6) \
+            or "UST_STOP_AFTER_ITERS=6 reached at iter 6" not in text \
+            or lr != full or lr == lr_at(5, 0.03, 6):
+        fail(f"(a) stop after 6: max_iterations "
+             f"{trainer.cfg.max_iterations}, step {payload['step']}, epoch "
+             f"{payload['epoch']}, {text.count('test stu model')} "
+             f"evaluations, {launches} RNG launches, lr {lr} (30k budget: "
+             f"{full})")
+    health = re.findall(r"epoch (\d+) weight health: (params|bn) max (.*)",
+                        text)
+    values = [float(kv.split(":")[1]) for _, _, line in health
+              for kv in line.split()]
+    inc = [float(line.split("inc:")[1].split()[0]) for _, what, line in
+           health if what == "params"]
+    if len(health) != 4 or len(values) != 38 \
+            or not all(math.isfinite(v) for v in values):
+        fail(f"(b) weight health lines: {health}")
+    trace = os.path.join(prof, "trace_rank0.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    rng_kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "uniform_fields_kernel" in e.get("name", "")]
+    if len(rng_kernels) != 2:
+        fail(f"(d) {trace} holds {len(rng_kernels)} uniform_fields_kernel "
+             "launches, not 2 (steps 2-3)")
+    del trainer, payload
+    free_card()
+    print(f"[instruments] (a) UST_STOP_AFTER_ITERS=6, epochs of 3, full "
+          f"width: stopped at step 6 after 2 evaluations and checkpoints, "
+          f"max_iterations 30000, last lr {lr:.9g} (30k schedule; a 6-step "
+          f"budget would give {lr_at(5, 0.03, 6):.6g}); uniform_rng launches "
+          f"{launches}; (b) UST_WNORM_LOG: 2 epochs x params/bn lines, "
+          f"{len(values)} finite values, inc params max "
+          f"{', '.join(f'{v:.3e}' for v in inc)}; (d) --profile_dir: "
+          f"{len(events)} trace events, uniform_fields_kernel in steps 2-3 "
+          f"{len(rng_kernels)} times ({os.path.getsize(trace) / 2 ** 20:.1f} "
+          f"MiB) | {card}", flush=True)
+
+    # (c) a legitimate flag that diverges: --base_lr NAN_LR
+    dump = os.path.join(work, "nan")
+    argv = train_argv("fundus", root, work, "nan", "--num_eval_iter",
+                      str(NAN_MAX_ITERS), "--base_lr", NAN_LR)
+    t0 = time.perf_counter()
+    code, text = train_entry(argv, {
+        "UST_NAN_DEBUG": dump, "UST_NAN_SNAP": "2",
+        "UST_STOP_AFTER_ITERS": str(NAN_MAX_ITERS)})
+    free_card()
+    found = re.findall(r"non-finite (\S+) at iteration (\d+); snapshot of "
+                       r"iteration (\d+)", text)
+    if code != 3 or not found or not os.path.exists(
+            os.path.join(dump, "state.pt")):
+        fail(f"(c) --base_lr {NAN_LR}: exit {code} (3 expected), dump "
+             f"{os.listdir(dump) if os.path.isdir(dump) else None}\n"
+             f"{text[-2000:]}")
+    terms, fail_it, snap_it = found[0]
+    replay = subprocess.run(
+        [sys.executable, "-m", "ust_run_tpu_torch.nan_replay", "--dump",
+         dump, "--health-every", "1", "--", *argv], cwd=HERE,
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": HERE})
+    again = re.findall(r"=== first non-finite at iter (\d+):", replay.stdout)
+    named = re.findall(r"first non-finite module output: "
+                       r"((?:student|teacher)\S*)", replay.stdout)
+    if replay.returncode != 1 or again != [fail_it] or not named:
+        fail(f"(c) nan_replay: rc {replay.returncode} (1 expected), failing "
+             f"iteration {again} (trainer: {fail_it}), module {named}\n"
+             f"{replay.stdout[-3000:]}\n{replay.stderr[-2000:]}")
+    health = [ln for ln in replay.stdout.splitlines()
+              if ln.startswith("iter ")]
+    print(f"[instruments] (c) --base_lr {NAN_LR}, UST_NAN_SNAP=2: exit 3, "
+          f"non-finite {terms} at iteration {fail_it}, snapshot of "
+          f"iteration {snap_it} dumped; nan_replay on the card: rc 1, first "
+          f"non-finite at iteration {again[0]} (the same), first module with "
+          f"a non-finite output {named[0]}; last health line before it: "
+          f"{health[-2] if len(health) > 1 else '-'}; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    shutil.rmtree(dump, ignore_errors=True)
+    return launches
+
+
 def steps_one_by_one(trainer, n):
     """`n` steps, each timed on its own (host clock to a synchronise; the
     first includes warm-up). Returns (ms per step, metrics, peak GiB)."""
@@ -1735,6 +1883,9 @@ def main():
         free_card()
         dp_launches = timed("data parallel", phase_data_parallel, card, work,
                             main_img_s)
+        free_card()
+        instruments_launches = timed("instruments", phase_instruments, card,
+                                     work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("rng timing", phase_rng_timing, card, kernels[0])
@@ -1744,6 +1895,7 @@ def main():
             k["launches"] = launches["uniform_rng"]
             k["zoo_path_launches"] = zoo_launches
             k["data_parallel_launches"] = dp_launches
+            k["instruments_launches"] = instruments_launches
             k["bit_equal_at"] = ["(16,256,256)", "(3,37,37)",
                                  "(16,384,384)", "(16,288,288)"]
         else:

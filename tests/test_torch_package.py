@@ -42,14 +42,17 @@ print(" ".join(mods))
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 36
+    assert len(mods) >= 42
     assert {f"ust_run_tpu_torch.{m}" for m in (
         "ops.fused_conv", "utils.boundary", "utils.boundary_native",
-        "engine.evaluator", "engine.checkpoint", "test")} <= mods
+        "engine.evaluator", "engine.checkpoint", "test", "nan_replay",
+        "parity_runs", "data.dl_utils", "data.transform", "data.ssda",
+        "data.extra_transforms")} <= mods
 
 
 def test_no_cpu_fallback(tmp_path, monkeypatch):
     """Without CUDA, every entry raises unless the CPU is asked for."""
+    from ust_run_tpu_torch import nan_replay
     from ust_run_tpu_torch import test as test_entry
     from ust_run_tpu_torch import train
     from ust_run_tpu_torch.ops import fused_conv, rng
@@ -67,6 +70,9 @@ def test_no_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         test_entry.main(["--dataset", "fundus", "--model_root",
                          str(tmp_path), "--data_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nan_replay.main(["--dump", str(tmp_path), "--", "--dataset",
+                         "fundus", "--data_root", str(tmp_path)])
     assert not os.listdir(tmp_path)          # raised before touching files
     assert rng.uniform_batch(2, 8, generator=g, device="cpu").shape \
         == (2, 8, 8)

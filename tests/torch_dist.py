@@ -385,3 +385,33 @@ def run_ce_dice(mesh):
                               mask=mask, mesh=m, rows=4)
         out[name] = (loss.detach(), torch.autograd.grad(loss, logits)[0])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the train entry under environment variables
+
+
+def entry_argv(tmp_path):
+    """The train entry's flags on a tiny synthetic fundus corpus: patch 32,
+    one test domain, epochs of one step, on the CPU."""
+    from ust_run_tpu_torch.data import synthetic
+    root = synthetic.generate("fundus", str(tmp_path / "fundus"), n_train=5,
+                              n_test=1, size=32, seed=0)
+    return ["--dataset", "fundus", "--data_root", root, "--lb_num", "3",
+            "--num_eval_iter", "1", "--patch_override", "32",
+            "--eval_batch", "2", "--domain_num", "1", "--model_root",
+            str(tmp_path / "model"), "--device", "cpu", "--overwrite"]
+
+
+def run_train_entry(mesh, argv, env):
+    """The train entry on `mesh` with `env` set: {"step", "exit"} (the
+    exit code of a SystemExit, else None)."""
+    from ust_run_tpu_torch import train
+    from ust_run_tpu_torch.config import build_parser
+    os.environ.update(env)
+    try:
+        trainer = train.run(build_parser().parse_args(argv), train.__file__,
+                            mesh)
+    except SystemExit as e:
+        return {"step": None, "exit": e.code}
+    return {"step": trainer.state.step, "exit": None}

@@ -28,6 +28,8 @@ def bootstrap(args, script_path, mesh=None):
     if mesh is not None and mesh.rank != 0:
         return cfg, snapshot_path
     os.makedirs(snapshot_path, exist_ok=True)
+    if os.path.exists(snapshot_path + "/code"):     # ust_run_tpu/cli.py:77
+        shutil.rmtree(snapshot_path + "/code")
     try:
         shutil.copy(script_path, os.path.join(
             snapshot_path, os.path.basename(script_path)))

@@ -126,7 +126,7 @@ class TrainConfig:
     num_devices: Optional[int] = None   # data-parallel mesh size (= ranks)
     eval_batch: int = 8                 # padded eval batch (ref uses bs=1)
     log_interval: int = 50              # host metric fetch cadence
-    profile_dir: Optional[str] = None   # accepted; profiling not ported yet
+    profile_dir: Optional[str] = None   # torch.profiler trace of steps 2-3
     patch_override: Optional[int] = None  # shrink patch size (smoke tests)
     unroll_steps: int = 10              # accepted and ignored (eager steps)
     # ImageNet-pretrained backbone weights dir for the DeepLab configs;
@@ -234,7 +234,9 @@ def build_parser(default_dataset="BUSI", mnms=False) -> argparse.ArgumentParser:
     parser.add_argument("--eval_batch", type=int, default=8)
     parser.add_argument("--log_interval", type=int, default=50)
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="accepted for CLI compatibility; unused")
+                        help="write a torch.profiler Chrome trace of the "
+                             "first epoch's steps 2-3 here (one file per "
+                             "rank)")
     parser.add_argument("--patch_override", type=int, default=None,
                         help="override the dataset patch size (smoke tests)")
     parser.add_argument("--unroll_steps", type=int, default=10,

@@ -10,7 +10,11 @@ Reference (utils/util.py:259-297, train.py:542-548, 946-958):
     the samplers' states, and the best-dice bookkeeping (`best_dice`,
     `best_iter`, `stu_best_dice`, `stu_best_iter`);
   * `unet_avg_dice_best_model.pth`, a bare student `state_dict`, written
-    on a new best student average dice and loaded by test.py:242;
+    on a new best student average dice and loaded by test.py:242.
+    `load_best_model` also reads the JAX package's best model, a pickle
+    of `{"params", "batch_stats"}` numpy trees (its checkpoint.py:90-93),
+    through a restricted unpickler and the `convert` bridges; the JAX
+    rolling `checkpoint.pth` pickles a JAX TrainState and is refused;
   * `--load` resumes from `<model_root>/<dataset>/<save_name>/
     checkpoint.pth` (the `--load_path` flag is dead upstream and here).
 
@@ -22,11 +26,20 @@ mid-write.
 """
 
 import os
+import pickle
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ust_run_tpu_torch import convert
 from ust_run_tpu_torch.semisup.state import CurriculumQueue, LQCarry
+
+# --model -> the bridge from the JAX package's variables
+JAX_BRIDGES = {"unet": convert.unet_state_dict_from_jax,
+               "unet2d": convert.unet2d_state_dict_from_jax,
+               "unet2d_dsbn": convert.unet2d_state_dict_from_jax,
+               "deeplabv2": convert.deeplab_state_dict_from_jax,
+               "deeplabv2_r50": convert.deeplab_state_dict_from_jax}
 
 
 def host_copy(obj):
@@ -106,13 +119,54 @@ def load_checkpoint(path):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_best_model(path):
-    """A student state_dict from the port's best-model file, upstream's
-    (a bare state_dict) or a full checkpoint (its `state_dict`)."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in payload and isinstance(payload["state_dict"], dict):
-        return payload["state_dict"]
-    return payload
+def load_best_model(path, model="unet"):
+    """A student state_dict from a best-model file: the port's or
+    upstream's torch file (a bare state_dict, or a full checkpoint's
+    `state_dict`), or the JAX package's pickle, told apart by the first
+    two bytes as the JAX loader does (checkpoint.py:119-136: "PK" is a
+    torch zip file) and converted for `model` (a --model value)."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic == b"PK":
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        if "state_dict" in payload and isinstance(payload["state_dict"],
+                                                  dict):
+            return payload["state_dict"]
+        return payload
+    with open(path, "rb") as f:
+        try:
+            variables = _NumpyUnpickler(f).load()
+        except pickle.UnpicklingError as e:
+            raise ValueError(
+                f"{path} is neither a torch file nor the JAX package's "
+                f"best-model pickle ({e}); the JAX rolling checkpoint.pth "
+                "holds a JAX TrainState, which the port cannot read: "
+                "evaluate the run's <model>_avg_dice_best_model.pth") from e
+    if not (isinstance(variables, dict) and set(variables) == {
+            "params", "batch_stats"}):
+        raise ValueError(f"{path}: not a JAX best model ({{'params', "
+                         "'batch_stats'}} expected)")
+    if model not in JAX_BRIDGES:
+        raise ValueError(f"no JAX bridge for --model {model!r}")
+    return JAX_BRIDGES[model](variables)
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    """Admits only numpy's array-rebuilding globals (numpy 1 and 2 names),
+    so a pickle loads without running other code or importing jax/flax."""
+
+    ALLOWED = {(m, n) for m in ("numpy.core.multiarray",
+                                "numpy._core.multiarray")
+               for n in ("_reconstruct", "scalar")} | {
+        (m, "_frombuffer") for m in ("numpy.core.numeric",
+                                     "numpy._core.numeric")} | {
+        ("numpy", "ndarray"), ("numpy", "dtype")}
+
+    def find_class(self, module, name):
+        if (module, name) in self.ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"global {module}.{name} is not a "
+                                     "numpy array's")
 
 
 def _incompatible(what):
@@ -141,7 +195,10 @@ def restore_onto(module, state_dict):
 
 
 def restore_state(state, payload):
-    """Put a rolling checkpoint back into the live train state, in place."""
+    """Put a rolling checkpoint back into the live train state, in place.
+    The state gets copies: training on never writes into `payload` (on
+    the CPU, `.to` and the optimizer's `load_state_dict` would alias it),
+    so a payload can be restored again."""
     restore_onto(state.student, payload["state_dict"])
     restore_onto(state.teacher, payload["ema_state_dict"])
     live_q = state.queue.fields()
@@ -150,13 +207,13 @@ def restore_state(state, payload):
     _check_tensors({"img": state.lq.img, "pl": state.lq.pl,
                     "conf": state.lq.conf}, {k: lq[k] for k in
                                              ("img", "pl", "conf")}, "lq")
-    state.optimizer.load_state_dict(payload["optimizer"])
+    state.optimizer.load_state_dict(host_copy(payload["optimizer"]))
     dev = state.choice_th.device
-    state.queue = CurriculumQueue(**{k: payload["queue"][k].to(dev)
+    state.queue = CurriculumQueue(**{k: payload["queue"][k].to(dev, copy=True)
                                      for k in live_q})
-    state.lq = LQCarry(**{k: lq[k].to(dev) for k in
+    state.lq = LQCarry(**{k: lq[k].to(dev, copy=True) for k in
                           ("img", "pl", "conf", "valid")})
-    state.choice_th = payload["choice_th"].to(dev)
+    state.choice_th = payload["choice_th"].to(dev, copy=True)
     state.generator.set_state(payload["generator"])
     state.host_generator.set_state(payload["host_generator"])
     state.step = int(payload["step"])

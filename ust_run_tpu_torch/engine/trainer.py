@@ -20,11 +20,26 @@ ust_run_tpu/engine/trainer.py).
     names), both models' BatchNorm synchronised over the ranks, each step
     sharded as parallel/mesh.py sets out and the evaluation split over
     the ranks. Every rank holds the same state and restores `--load`;
-    rank 0 alone writes the log, the metric writer and the checkpoints.
+    rank 0 alone writes the log, the metric writer and the checkpoints;
+  * run control and forensics (trainer.py:158-166, 242-323, 351-389):
+    `UST_STOP_AFTER_ITERS=N` ends the run after the first epoch that
+    reaches iteration N, without changing `max_iterations` (so the lr,
+    ramp and FDA schedules stay those of the full budget);
+    `UST_WNORM_LOG=1` logs each top-level module's largest |parameter|
+    and |BN statistic| every epoch; `UST_NAN_DEBUG=DIR` keeps a host
+    snapshot of the train state every `UST_NAN_SNAP` iterations (default
+    250) and the index batches since, and at the first non-finite loss
+    term writes both to DIR (`state.pt`, `batches.pt`; replayed by
+    `python -m ust_run_tpu_torch.nan_replay`) and exits with code 3;
+    `--profile_dir` writes a torch.profiler Chrome trace of the first
+    epoch's steps 2-3 (one file per rank); on a terminal a tqdm bar shows
+    the last drained step. With none of them set, the step path is
+    unchanged.
 """
 
 import logging
 import os
+import sys
 import time
 
 import numpy as np
@@ -43,6 +58,10 @@ from ust_run_tpu_torch.semisup.step import (HyperParams, step_fn,
 from ust_run_tpu_torch.utils.device import resolve_device
 from ust_run_tpu_torch.utils.logging_utils import MetricWriter
 from ust_run_tpu_torch.utils.meters import AverageMeter
+
+
+LOSS_TERMS = ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
+              "unsup_loss_s")
 
 
 def set_numerics():
@@ -154,6 +173,13 @@ class Trainer:
         self.stu_dice_of_best_avg = [0.0] * n_part
         self.start_epoch = 0
         self._ckpt_io = ckpt.AsyncCheckpointer()
+        # non-finite-loss forensics (trainer.py:158-166): the last host
+        # snapshot (iteration, checkpoint payload) and the batches since
+        self._nan_dir = os.environ.get("UST_NAN_DEBUG", "")
+        self._nan_snap_every = int(os.environ.get("UST_NAN_SNAP", "250"))
+        self._nan_snap = None
+        self._nan_batches = []
+        self._bar = None
         if cfg.load:
             self._resume(os.path.join(snapshot_path, "checkpoint.pth"))
         self.iter_num = self.state.step
@@ -230,36 +256,96 @@ class Trainer:
         last one is read at the end."""
         out = []
         for _ in range(n):
+            if self._nan_dir and (self._nan_snap is None or self.iter_num
+                                  - self._nan_snap[0] >= self._nan_snap_every):
+                # a snapshot follows a step whose losses were checked
+                out += self._flush()
+                self._take_snapshot()
             idx, dev_idx = self._next_batch()
+            if self._nan_dir:
+                self._nan_batches.append(
+                    {"epoch": self.state.epoch,
+                     **{k: torch.from_numpy(np.asarray(v, np.int64))
+                        for k, v in idx.items()}})
             metrics = step_fn(self.state, self.device_data, dev_idx, self.hp,
                               self.mesh)
             self.iter_num += 1
-            if self._pending is not None:
-                out.append(self._drain(self._pending))
+            out += self._flush()
             self._pending = _Pending(self.iter_num, metrics, idx["ulb_idx"])
-        if self._pending is not None:
-            out.append(self._drain(self._pending))
-            self._pending = None
-        return out
+            if self._bar is not None:
+                self._bar.update(1)
+        return out + self._flush()
+
+    def _flush(self):
+        """The pending step's metrics, read ([] if there is none)."""
+        pending, self._pending = self._pending, None
+        return [] if pending is None else [self._drain(pending)]
 
     def train(self):
         cfg = self.cfg
         parts = list(self.profile_.parts)
         max_epoch = cfg.max_iterations // cfg.num_eval_iter
+        stop_after = int(os.environ.get("UST_STOP_AFTER_ITERS", "0"))
         logging.info("%d iterations per epoch", cfg.num_eval_iter)
         logging.info("%d epoch in all.", max_epoch)
         for epoch_num in range(self.start_epoch, max_epoch):
             if epoch_num > self.start_epoch:
                 self.new_epoch(epoch_num)
             t0 = time.time()
-            self.train_steps(cfg.num_eval_iter)
+            self._bar = self._progress_bar(epoch_num)
+            if cfg.profile_dir and epoch_num == self.start_epoch:
+                self._profiled_steps(cfg.num_eval_iter)
+            else:
+                self.train_steps(cfg.num_eval_iter)
+            if self._bar is not None:
+                self._bar.close()
+                self._bar = None
             dt = time.time() - t0
             imgs = cfg.num_eval_iter * (cfg.label_bs + cfg.unlabel_bs)
             logging.info("epoch %d: %.1f it/s, %.1f images/s",
                          epoch_num + 1, cfg.num_eval_iter / dt, imgs / dt)
             self._log_epoch(parts)
+            if os.environ.get("UST_WNORM_LOG") and self.is_main:
+                log_weight_health(epoch_num, self.state.student)
             self.evaluate_and_checkpoint(epoch_num, self.iter_num)
+            # a short run on the full budget's schedules (trainer.py:315-323)
+            if stop_after and self.iter_num >= stop_after:
+                logging.info("UST_STOP_AFTER_ITERS=%d reached at iter %d; "
+                             "stopping early", stop_after, self.iter_num)
+                break
         self.close()
+
+    def _profiled_steps(self, n):
+        """n steps, the 2nd and 3rd under torch.profiler (trainer.py
+        :253-261), written as a Chrome trace to `--profile_dir`, one file
+        per rank."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.train_steps(min(n, 1))
+        # train_steps returns once the last step's metrics have reached the
+        # host, so the trace holds all of both steps' device work
+        with profile(activities=activities) as prof:
+            self.train_steps(min(n - 1, 2))
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        rank = 0 if self.mesh is None else self.mesh.rank
+        path = os.path.join(self.cfg.profile_dir, f"trace_rank{rank}.json")
+        prof.export_chrome_trace(path)
+        logging.info("profiler trace written to %s", path)
+        self.train_steps(max(n - 3, 0))
+
+    def _progress_bar(self, epoch_num):
+        """The reference's live tqdm bar (train.py:874-879), on a terminal
+        only and where tqdm imports (trainer.py:242-251)."""
+        if not (self.is_main and sys.stdout.isatty()):
+            return None
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            return None
+        return tqdm(total=self.cfg.num_eval_iter, ncols=80,
+                    desc=f"epoch {epoch_num + 1}", leave=False)
 
     def close(self):
         """Wait for the last checkpoint write and close the metric log."""
@@ -288,8 +374,45 @@ class Trainer:
 
     def _drain(self, pending):
         m = unpack_metrics(pending.fetch(), self.hp)
+        if self._nan_dir:
+            bad = [k for k in LOSS_TERMS if not np.isfinite(m[k])]
+            if bad:
+                self._nan_dump(pending.it, bad)
         self._log_step(pending.it, m, np.asarray(pending.ulb_idx))
+        if self._bar is not None:
+            self._bar.set_description(
+                bar_description(self.cfg.dataset, pending.it, m),
+                refresh=False)
         return m
+
+    def _take_snapshot(self):
+        """The rolling host snapshot of UST_NAN_DEBUG: the checkpoint
+        payload (models, SGD, queue, LQ, choice_th, generators, samplers)
+        before the next batch is drawn. Rank 0 alone keeps one."""
+        self._nan_batches = []
+        self._nan_snap = (self.iter_num, self.host_payload(self.state.epoch)
+                          if self.is_main else None)
+
+    def _nan_dump(self, it, bad_terms):
+        """First non-finite loss (trainer.py:372-389): rank 0 writes the
+        last snapshot and the batches since it for
+        `python -m ust_run_tpu_torch.nan_replay`; every rank (the losses
+        are replicated) then ends the run with exit code 3."""
+        snap_it, payload = self._nan_snap
+        if self.is_main:
+            os.makedirs(self._nan_dir, exist_ok=True)
+            ckpt.atomic_save(os.path.join(self._nan_dir, "state.pt"),
+                             {"iter": snap_it, "state": payload,
+                              "world": 1 if self.mesh is None
+                              else self.mesh.world})
+            ckpt.atomic_save(os.path.join(self._nan_dir, "batches.pt"),
+                             {"batches": self._nan_batches})
+            logging.error(
+                "non-finite %s at iteration %d; snapshot of iteration %d and "
+                "%d batches dumped to %s", ",".join(bad_terms), it, snap_it,
+                len(self._nan_batches), self._nan_dir)
+        self.close()
+        raise SystemExit(3)
 
     def _log_step(self, it, m, ulb_idx):
         """Per-step meters, scalars and log lines in the JAX trainer's
@@ -394,14 +517,19 @@ class Trainer:
 
         # --eval reports only and never touches artifacts; rank 0 writes
         if save and self.is_main:
-            payload = ckpt.host_copy(ckpt.state_payload(
-                self.state, epoch_num + 1,
-                (self.best_avg_dice, self.best_avg_dice_iter,
-                 self.stu_best_avg_dice, self.stu_best_avg_dice_iter),
-                {"lb": self.lb_pipe.state(), "ulb": self.ulb_pipe.state()}))
+            payload = self.host_payload(epoch_num + 1)
             best = payload["state_dict"] if is_best else None
             self._ckpt_io.submit(self._write_checkpoint, payload, best)
         return val_dice, stu_dice
+
+    def host_payload(self, epoch):
+        """The rolling checkpoint's payload of the live state (with the
+        best-dice bookkeeping and the samplers), copied to the host."""
+        return ckpt.host_copy(ckpt.state_payload(
+            self.state, epoch,
+            (self.best_avg_dice, self.best_avg_dice_iter,
+             self.stu_best_avg_dice, self.stu_best_avg_dice_iter),
+            {"lb": self.lb_pipe.state(), "ulb": self.ulb_pipe.state()}))
 
     def _write_checkpoint(self, payload, best):
         if best is not None:
@@ -416,3 +544,56 @@ class Trainer:
     def wait_for_checkpoint(self):
         """Block until the last submitted checkpoint is on disk."""
         self._ckpt_io.wait()
+
+
+def weight_health(model):
+    """({module: max |parameter|}, {module: max |BN running mean or
+    variance|}) over `model`'s top-level modules, in sorted order as the
+    JAX trainer's variable dicts are (trainer.py:351-370). Parameters
+    include the BN weights and biases; `num_batches_tracked` (a count) is
+    left out, and so is a module without BN statistics."""
+    def maxima(named):
+        groups = {}
+        for name, t in named:
+            groups.setdefault(name.split(".")[0], []).append(
+                t.detach().abs().amax())
+        return {k: torch.stack(v).amax().item()
+                for k, v in sorted(groups.items())}
+
+    return (maxima(model.named_parameters()),
+            maxima((n, b) for n, b in model.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))))
+
+
+def log_weight_health(epoch_num, model):
+    """UST_WNORM_LOG's two lines in the JAX trainer's format: the signal
+    of first-layer weights growing until the BN variance overflows
+    (STABILITY.md)."""
+    params, bn = weight_health(model)
+    for what, maxima in (("params", params), ("bn", bn)):
+        logging.info("epoch %d weight health: %s max %s", epoch_num + 1,
+                     what, " ".join(f"{k}:{v:.3e}" for k, v in maxima.items()))
+
+
+def bar_description(dataset, it, m):
+    """The reference's live tqdm description (train.py:874-879;
+    trainer.py:391-412) from the unpacked metrics `m` of iteration
+    `it`."""
+    if dataset == "fundus":
+        return ("iteration %d: loss:%.4f,sup_loss:%.4f, "
+                "unsup_loss_ul:%f, unsup_loss_lu:%f, cons_w:%.4f,"
+                "mask_ratio:%.4f,%.4f,%.4f,ulb_cd:%.4f,ulb_dd:%.4f"
+                % (it, m["loss"], m["sup_loss"], m["unsup_loss_ul"],
+                   m["unsup_loss_lu"], m["consistency_weight"],
+                   m["mask_ratio"], m["ratio_before_ensemble"],
+                   m["ratio_after_ensemble"], m["ulb_dice"][0],
+                   m["ulb_dice"][-1]))
+    return ("iteration %d : loss:%.3f, sup_loss:%.3f, "
+            "unsup_loss_ul:%.3f, unsup_loss_lu:%.3f, "
+            "unsup_loss_s:%.3f, cons_w:%.3f, "
+            "mask_ratio:%.3f,%.4f,%.4f, ulb_dice:%.3f"
+            % (it, m["loss"], m["sup_loss"], m["unsup_loss_ul"],
+               m["unsup_loss_lu"], m["unsup_loss_s"],
+               m["consistency_weight"], m["mask_ratio"],
+               m["ratio_before_ensemble"], m["ratio_after_ensemble"],
+               m["ulb_dice"][0]))

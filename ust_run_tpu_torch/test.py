@@ -9,7 +9,8 @@ Flags are those of test.py (the reference's test.py:19-32) plus
 given). It builds `--model` (any of the trainer's: unet, unet2d,
 deeplabv2, deeplabv2_r50), rebuilds the per-domain test loaders, loads
 `<model_root>/<dataset>/<save_name>/<model>_avg_dice_best_model.pth` (the
-port's file or upstream's; `--load_path` is ignored there too) and runs
+port's file, upstream's, or the JAX package's pickle, converted for
+`--model`; `--load_path` is ignored there too) and runs
 one evaluation pass, logged to `test_log.txt` and stdout. `--save_img`
 then writes each test image's prediction and ground-truth overlays to
 `<snapshot>/pred_images/<name>` (JAX test.py:86-97). Under `torchrun
@@ -102,7 +103,7 @@ def evaluate(args, mesh=None):
                             amp=bool(cfg.amp) and device.type == "cuda")
         best_path = os.path.join(snapshot_path,
                                  f"{cfg.model}_avg_dice_best_model.pth")
-        ckpt.restore_onto(model, ckpt.load_best_model(best_path))
+        ckpt.restore_onto(model, ckpt.load_best_model(best_path, cfg.model))
         model = model.to(device, memory_format=torch.channels_last)
         evaluator = Evaluator(hp, loaders, list(profile.parts), device,
                               mesh)

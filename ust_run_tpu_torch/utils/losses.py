@@ -1,5 +1,7 @@
-"""Segmentation losses (port of the main-path half of
-ust_run_tpu/utils/losses.py).
+"""Segmentation losses (port of ust_run_tpu/utils/losses.py): the main
+path's CE+Dice, and the auxiliary losses no entry point reaches
+(`dice_loss_plain`, `focal_loss`, `softmax_{dice,mse,kl}_loss`,
+`entropy_loss`, `entropy_map`; losses.py:130-211).
 
 Conventions (all NHWC):
   * `logits`: (B, H, W, C) raw network outputs.
@@ -23,6 +25,7 @@ which gives the loss of the global batch; averaging the ranks' losses
 would not.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -136,3 +139,79 @@ def ce_plus_dice(logits, target, *, multilabel, n_classes, mask=None,
     if multilabel:
         return ce_mean + _soft_dice(*sums[0])
     return ce_mean + _multiclass_dice(sums)
+
+
+def dice_loss_plain(score, target, smooth=1e-5):
+    """Unmasked soft dice with 1e-5 smoothing (losses.py:8-16 /
+    DiceLoss._dice_loss at :169-177)."""
+    score = score.to(torch.float32)
+    target = target.to(torch.float32)
+    inter = torch.sum(score * target)
+    return 1.0 - (2.0 * inter + smooth) / (
+        torch.sum(score * score) + torch.sum(target * target) + smooth)
+
+
+def focal_loss(logits, target, gamma=2.0, alpha=None, size_average=True):
+    """Multi-class focal loss (reference FocalLoss, losses.py:119-153).
+    logits: (..., C); target: (...) int. alpha: None | scalar | (C,)
+    list."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    target = target.to(torch.int64)
+    logpt = torch.gather(logp, -1, target[..., None])[..., 0]
+    pt = torch.exp(logpt)
+    if alpha is not None:
+        alpha = torch.as_tensor(alpha, dtype=torch.float32)
+        if alpha.ndim == 0:
+            alpha = torch.stack([alpha, 1 - alpha])
+        logpt = logpt * alpha.to(logits.device)[target]
+    loss = -((1 - pt) ** gamma) * logpt
+    return torch.mean(loss) if size_average else torch.sum(loss)
+
+
+def softmax_dice_loss(input_logits, target_logits):
+    """Per-class soft dice between two softmax outputs, averaged over
+    classes (losses.py:39-56)."""
+    a = torch.softmax(input_logits, dim=-1)
+    b = torch.softmax(target_logits, dim=-1)
+    n = input_logits.shape[-1]
+    total = 0.0
+    for c in range(n):
+        score, target = a[..., c], b[..., c]
+        inter = torch.sum(score * target)
+        total = total + 1.0 - (2 * inter + 1e-5) / (
+            torch.sum(score) + torch.sum(target) + 1e-5)
+    return total / n
+
+
+def softmax_mse_loss(input_logits, target_logits, sigmoid=False):
+    """Elementwise MSE between softmax/sigmoid outputs (losses.py:65-82)."""
+    if sigmoid:
+        a, b = torch.sigmoid(input_logits), torch.sigmoid(target_logits)
+    else:
+        a = torch.softmax(input_logits, dim=-1)
+        b = torch.softmax(target_logits, dim=-1)
+    return (a - b) ** 2
+
+
+def softmax_kl_loss(input_logits, target_logits, sigmoid=False):
+    """Mean KL(target || input) (losses.py:85-104): torch's
+    F.kl_div(logp, q, reduction='mean') over all elements."""
+    if sigmoid:
+        logp = torch.log(torch.sigmoid(input_logits))
+        q = torch.sigmoid(target_logits)
+    else:
+        logp = F.log_softmax(input_logits, dim=-1)
+        q = torch.softmax(target_logits, dim=-1)
+    return torch.mean(q * (torch.log(torch.clamp(q, min=1e-30)) - logp))
+
+
+def entropy_loss(probs, n_classes=2):
+    """Normalized mean entropy (losses.py:30-36)."""
+    ent = -torch.sum(probs * torch.log(probs + 1e-6), dim=-1) \
+        / float(np.log(n_classes))
+    return torch.mean(ent)
+
+
+def entropy_map(probs):
+    """Per-pixel entropy map (losses.py:278-281)."""
+    return -torch.sum(probs * torch.log(probs + 1e-6), dim=-1, keepdim=True)

@@ -19,6 +19,20 @@ def sigmoid_rampup(current, rampup_length):
     return np.float32(np.exp(np.float32(-5.0) * phase * phase))
 
 
+def linear_rampup(current, rampup_length):
+    """Linear 0->1 ramp (reference utils/ramps.py:29-35)."""
+    if rampup_length < 0:
+        raise ValueError(f"rampup_length {rampup_length} < 0")
+    if rampup_length == 0 or current >= rampup_length:
+        return 1.0
+    return current / rampup_length
+
+
+def cosine_rampdown(current, rampdown_length):
+    """Cosine 1->0 rampdown (reference utils/ramps.py:38-41)."""
+    return float(0.5 * (np.cos(np.pi * current / rampdown_length) + 1))
+
+
 def consistency_weight(consistency, iter_num, max_iterations, rampup_length):
     """w = consistency * sigmoid_rampup(iter // (max_iter / rampup), rampup)
     (reference train.py:819-820): the float floor division makes a
