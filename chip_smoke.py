@@ -14,7 +14,7 @@ Phases, one line each (or a few); any failure exits non-zero:
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar (its timing is phase 15);
+       ragged one, and the statistical bar (its timing is phase 16);
      - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
        (ragged image edges, a partial last K chunk with C > 64, a partial
        N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
@@ -102,7 +102,20 @@ Phases, one line each (or a few); any failure exits non-zero:
      (UST_NAN_SNAP 2), and `python -m ust_run_tpu_torch.nan_replay`
      reproduces its failing iteration on the card (exit 1) and names the
      first module with a non-finite output;
- 15. RNG timing: the uniform-field RNG's and torch.rand's device time
+ 15. spatial (ust_run_tpu_torch.parallel with a space axis: row slabs
+     of 16-row blocks, halo rows for every 3x3 convolution), fundus at
+     phase 5's full width, Gloo ranks spawned on cuda:0: (a) a 1 x 2 mesh
+     (data 1 x space 2), bf16, DP_STEPS steps: the replicas bit-equal,
+     every loss finite, uniform_rng once per step per rank, the first
+     step's losses and the state after the steps within DP_LOSS_RTOL and
+     DP_UPDATE_SHARE of world 1; and one float32 step whose gradient lies
+     within DP_GRAD_SHARE of world 1's; (b) the same runs with the halo
+     rows zeroed must miss one of those bars (at full width only the
+     float32 gradient's does: two rows in 256 barely move a bf16 loss);
+     (c) a 2 x 2 mesh on four ranks, float32, one step, whose gradient
+     must lie within DP_GRAD_SHARE of world 1's. Its img/s and peak GiB
+     are several processes sharing one card, not a scaling figure;
+ 16. RNG timing: the uniform-field RNG's and torch.rand's device time
      per kernel (torch.profiler) apart from the host's cost per call
      (host clock). Last, so that no phase timed before it runs in a
      process that torch.profiler has traced.
@@ -1247,40 +1260,64 @@ def mean_of_local_losses(world):
     return fault
 
 
-def dp_rank(rank, world, work, fundus_runs, zoo_argv):
-    """One rank of phase 13's Gloo group on cuda:0 (spawned): the fundus
-    runs, each (name, argv, steps, planted) from the same seed (`planted`:
-    with `mean_of_local_losses`), then DP_STEPS `deeplabv2_r50` steps and
+def planted(fault, world):
+    """Put a control fault in place in this process; returns the undo.
+    "local_losses" (phase 13 b): what averaging the ranks' own losses
+    (plain DDP) computes, through `mean_of_local_losses`; "zero_halo"
+    (phase 15 b): every slab's halo rows zeroed, as if each slab were the
+    image's edge."""
+    from ust_run_tpu_torch.parallel import spatial
+    from ust_run_tpu_torch.utils import losses
+    saved = [(losses, "ce_plus_dice", losses.ce_plus_dice),
+             (spatial, "halo_rows", spatial.halo_rows)]
+    if fault == "local_losses":
+        losses.ce_plus_dice = mean_of_local_losses(world)
+    elif fault == "zero_halo":
+        import torch.nn.functional as F
+        spatial.halo_rows = lambda x, mesh: F.pad(x, (0, 0, 1, 1))
+
+    def undo():
+        for obj, name, v in saved:
+            setattr(obj, name, v)
+    return undo
+
+
+def dp_rank(rank, world, work, fundus_runs, zoo_argv, spatial=1,
+            tag="dp"):
+    """One rank of a Gloo group on cuda:0 (spawned), laid out as a
+    (world // spatial) x spatial mesh: the fundus runs, each (name, argv,
+    steps, planted) from the same seed (`planted`: a fault of `planted`,
+    or None), then, with `zoo_argv`, DP_STEPS `deeplabv2_r50` steps and
     one sharded evaluation beside this rank's evaluation of every sample
-    alone. Saves what it saw to `<work>/dp_ranks/rank<rank>.pt`; rank 0
-    adds the fundus runs' states."""
+    alone. Saves what it saw to `<work>/<tag>_ranks/rank<rank>.pt`; rank
+    0 adds the fundus runs' states."""
     import torch
     from ust_run_tpu_torch import parallel
     from ust_run_tpu_torch.engine.evaluator import Evaluator
     from ust_run_tpu_torch.ops import rng
-    from ust_run_tpu_torch.utils import losses
 
     mesh = parallel.init_distributed(
         backend="gloo", device="cuda:0", rank=rank, world_size=world,
-        init_method="file://" + os.path.join(work, "dp_store_b"))
+        init_method="file://" + os.path.join(work, f"{tag}_store"),
+        spatial=spatial)
     res = {}
     try:
-        for name, argv, steps, planted in fundus_runs:
-            port = losses.ce_plus_dice
-            if planted:
-                losses.ce_plus_dice = mean_of_local_losses(world)
+        for name, argv, steps, fault in fundus_runs:
+            undo = planted(fault, world)
             try:
                 trainer, _ = make_trainer(argv, mesh)
+                torch.cuda.reset_peak_memory_stats()
                 rng.launches = 0
                 t0 = time.perf_counter()
                 metrics = trainer.train_steps(steps)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
             finally:
-                losses.ce_plus_dice = port
+                undo()
             st = state_tensors(trainer.state)
             res[name] = dict(
                 metrics=metrics, launches=rng.launches, secs=secs,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 replica_diff=mesh.max_replica_difference(list(st.values())))
             if rank == 0:
                 res[name]["state"] = {k: v.detach().cpu()
@@ -1289,51 +1326,89 @@ def dp_rank(rank, world, work, fundus_runs, zoo_argv):
             del trainer, st
             free_card()
 
-        with LogRecords():
-            trainer, _ = make_trainer(zoo_argv, mesh)
-        rng.launches = 0
-        metrics = trainer.train_steps(DP_STEPS)
-        launches = rng.launches
-        st = state_tensors(trainer.state)
-        diff = mesh.max_replica_difference(list(st.values()))
-        ev = trainer.evaluator
-        with LogRecords():
-            sharded = ev.evaluate(trainer.state.teacher, 1)
-            alone = Evaluator(ev.hp, ev.loaders, ev.parts,
-                              ev.device).evaluate(trainer.state.teacher, 1)
-        res["zoo"] = dict(metrics=metrics, launches=launches,
-                          replica_diff=diff, sharded=sharded, alone=alone,
-                          model=type(trainer.state.student).__name__,
-                          layers=trainer.state.student.backbone.layers)
-        trainer.close()
+        if zoo_argv is not None:
+            with LogRecords():
+                trainer, _ = make_trainer(zoo_argv, mesh)
+            rng.launches = 0
+            metrics = trainer.train_steps(DP_STEPS)
+            launches = rng.launches
+            st = state_tensors(trainer.state)
+            diff = mesh.max_replica_difference(list(st.values()))
+            ev = trainer.evaluator
+            with LogRecords():
+                sharded = ev.evaluate(trainer.state.teacher, 1)
+                alone = Evaluator(ev.hp, ev.loaders, ev.parts,
+                                  ev.device).evaluate(trainer.state.teacher,
+                                                      1)
+            res["zoo"] = dict(metrics=metrics, launches=launches,
+                              replica_diff=diff, sharded=sharded, alone=alone,
+                              model=type(trainer.state.student).__name__,
+                              layers=trainer.state.student.backbone.layers)
+            trainer.close()
     finally:
         mesh.close()
-    torch.save(res, os.path.join(work, "dp_ranks", f"rank{rank}.pt"))
+    torch.save(res, os.path.join(work, f"{tag}_ranks", f"rank{rank}.pt"))
 
 
-def run_dp_ranks(work, world, *args, timeout=600):
+def run_dp_ranks(work, world, *args, spatial=1, tag="dp", timeout=600):
     """dp_rank on `world` spawned processes; fails on a rank's error or
     after `timeout` s, and kills what still runs. Returns their results."""
     import torch
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
-    os.makedirs(os.path.join(work, "dp_ranks"), exist_ok=True)
-    ctx = mp.start_processes(dp_rank, args=(world, work) + args,
+    os.makedirs(os.path.join(work, f"{tag}_ranks"), exist_ok=True)
+    ctx = mp.start_processes(dp_rank, args=(world, work) + args
+                             + (spatial, tag),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
-                fail(f"the data-parallel ranks took more than {timeout} s")
+                fail(f"the {tag} ranks took more than {timeout} s")
     except ProcessException as e:
-        fail(f"a data-parallel rank failed: {e}")
+        fail(f"a {tag} rank failed: {e}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    return [torch.load(os.path.join(work, "dp_ranks", f"rank{r}.pt"),
+    return [torch.load(os.path.join(work, f"{tag}_ranks", f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+def world1_references(root, work):
+    import torch
+    """Phase 5's trainer at world 1, no process group: (its initial state,
+    the metrics and state after DP_STEPS steps, the SGD momentum after one
+    float32 step, i.e. the first step's gradient, and that step's peak
+    GiB)."""
+    plain, _ = make_trainer(train_argv("fundus", root, work, "dp_plain"))
+    init = {k: v.detach().clone()
+            for k, v in state_tensors(plain.state).items()}
+    ref_metrics = plain.train_steps(DP_STEPS)
+    ref = {k: v.detach().clone()
+           for k, v in state_tensors(plain.state).items()}
+    plain.close()
+    del plain
+    free_card()
+    plain, _ = make_trainer(train_argv("fundus", root, work, "dp_f32",
+                                       "--amp", "0"))
+    torch.cuda.reset_peak_memory_stats()
+    plain.train_steps(1)
+    peak_f32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref_grad = {k: v.detach().clone()
+                for k, v in state_tensors(plain.state).items()
+                if k.startswith("momentum.")}
+    plain.close()
+    del plain
+    free_card()
+    return init, ref_metrics, ref, ref_grad, peak_f32
+
+
+def first_losses_error(metrics, ref_metrics):
+    """max relative |d| of the first step's losses against world 1's."""
+    return max(abs(float(metrics[0][k]) - float(ref_metrics[0][k]))
+               / max(abs(float(ref_metrics[0][k])), 1e-30) for k in LOSSES)
 
 
 def phase_data_parallel(card, work, main_img_s):
@@ -1348,31 +1423,14 @@ def phase_data_parallel(card, work, main_img_s):
     from ust_run_tpu_torch.ops import rng
 
     root = os.path.join(work, "fundus")
-    plain, cfg = make_trainer(train_argv("fundus", root, work, "dp_plain"))
-    init = {k: v.detach().clone()
-            for k, v in state_tensors(plain.state).items()}
-    ref_metrics = plain.train_steps(DP_STEPS)
-    ref = {k: v.detach().clone()
-           for k, v in state_tensors(plain.state).items()}
-    plain.close()
-    del plain
-    free_card()
-    # the first step's gradient in float32 (the SGD momentum after it)
-    f32_argv = train_argv("fundus", root, work, "dp_f32", "--amp", "0")
-    plain, _ = make_trainer(f32_argv)
-    plain.train_steps(1)
-    ref_grad = {k: v.detach().clone() for k, v in
-                state_tensors(plain.state).items() if k.startswith("momentum.")}
-    plain.close()
-    del plain
-    free_card()
+    init, ref_metrics, ref, ref_grad, _ = world1_references(root, work)
 
     # (a) one rank under NCCL: the plain trainer's state, bit for bit
     mesh = parallel.init_distributed(
         backend="nccl", device="cuda:0", rank=0, world_size=1,
         init_method="file://" + os.path.join(work, "dp_store_a"))
     try:
-        trainer, _ = make_trainer(
+        trainer, cfg = make_trainer(
             train_argv("fundus", root, work, "dp_nccl"), mesh)
         rng.launches = 0
         warm = trainer.train_steps(DP_STEPS)
@@ -1411,10 +1469,10 @@ def phase_data_parallel(card, work, main_img_s):
     runs = [(name, train_argv("fundus", root, work, f"dp_{name}", "--device",
                               "cuda:0", *extra), steps, planted)
             for name, extra, steps, planted in (
-                ("bf16", (), DP_STEPS, False),
-                ("bf16_planted", (), DP_STEPS, True),
-                ("f32", ("--amp", "0"), 1, False),
-                ("f32_planted", ("--amp", "0"), 1, True))]
+                ("bf16", (), DP_STEPS, None),
+                ("bf16_planted", (), DP_STEPS, "local_losses"),
+                ("f32", ("--amp", "0"), 1, None),
+                ("f32_planted", ("--amp", "0"), 1, "local_losses"))]
     t0 = time.perf_counter()
     res = run_dp_ranks(
         work, 2, runs,
@@ -1434,8 +1492,7 @@ def phase_data_parallel(card, work, main_img_s):
                 fail(f"{run}: uniform_rng launched {o['launches']} times in "
                      f"{steps} steps on rank {r}")
     b = res[0]["bf16"]
-    loss_err = max(abs(float(b["metrics"][0][k]) - float(ref_metrics[0][k]))
-                   / abs(float(ref_metrics[0][k])) for k in LOSSES)
+    loss_err = first_losses_error(b["metrics"], ref_metrics)
     shares = {p: update_share(b["state"], ref, init, p)
               for p in ("student.", "teacher.", "momentum.")}
     planted = {p: update_share(res[0]["bf16_planted"]["state"], ref, init, p)
@@ -1485,9 +1542,118 @@ def phase_data_parallel(card, work, main_img_s):
           f"{z[0]['sharded']['metrics'][0].round(4).tolist()}) equals each "
           f"rank's evaluation of every sample alone within {worst:.1e}; "
           f"(b)+(c) {wall:.1f} s wall | {card}", flush=True)
-    return {"world1_nccl": launches_a,
+    gloo_img_s = DP_STEPS * (cfg.label_bs + cfg.unlabel_bs) / b["secs"]
+    return gloo_img_s, {"world1_nccl": launches_a,
             "gloo_fundus": [o["bf16"]["launches"] for o in res],
             "gloo_deeplabv2_r50": [o["launches"] for o in z]}
+
+
+def phase_spatial(card, work, gloo_img_s):
+    """The trainer on a mesh with a space axis (parallel/spatial.py: row
+    slabs, halo rows), full-width fundus as in phase 5, Gloo ranks sharing
+    cuda:0: (a) 1 x 2 (data 1 x space 2), bf16, DP_STEPS steps against
+    world 1, and one float32 step whose gradient must lie within
+    DP_GRAD_SHARE of world 1's; (b) the same runs with the halo rows
+    zeroed, which must miss one of those bars; (c) 2 x 2 on four ranks,
+    float32, one step, the gradient against world 1's. Returns the RNG
+    kernel's launches in each run."""
+    root = os.path.join(work, "fundus")
+    init, ref_metrics, ref, ref_grad, peak_f32 = world1_references(root,
+                                                                   work)
+    bf16 = train_argv("fundus", root, work, "sp_bf16", "--device", "cuda:0")
+    f32 = train_argv("fundus", root, work, "sp_f32", "--device", "cuda:0",
+                     "--amp", "0")
+    runs = [("bf16", bf16, DP_STEPS, None),
+            ("zero_halo", bf16, DP_STEPS, "zero_halo"),
+            ("f32", f32, 1, None), ("f32_zero_halo", f32, 1, "zero_halo")]
+    t0 = time.perf_counter()
+    res = run_dp_ranks(work, 2, runs, None, spatial=2, tag="sp12")
+    wall_a = time.perf_counter() - t0
+    for r, out in enumerate(res):
+        for run, _, steps, _ in runs:
+            o = out[run]
+            check_losses(o["metrics"], f"1x2 rank {r} {run}")
+            if o["replica_diff"] != 0.0:
+                fail(f"1x2 {run}: rank {r} differs from rank 0 by "
+                     f"{o['replica_diff']} after {steps} steps")
+            if o["launches"] != steps:
+                fail(f"1x2 {run}: uniform_rng launched {o['launches']} "
+                     f"times in {steps} steps on rank {r}")
+    batch = 8                                       # 4 + 4, phase 5's
+    b, z = res[0]["bf16"], res[0]["zero_halo"]
+    loss_err, zero_err = (first_losses_error(o["metrics"], ref_metrics)
+                          for o in (b, z))
+    shares, zero = ({p: update_share(o["state"], ref, init, p)
+                     for p in ("student.", "teacher.", "momentum.")}
+                    for o in (b, z))
+    grad, zero_grad = (update_share(res[0][run]["state"], ref_grad, {},
+                                    "momentum.")
+                       for run in ("f32", "f32_zero_halo"))
+    print(f"[spatial] (a) 1 x 2 mesh (data 1 x space 2), 2 Gloo ranks "
+          f"sharing cuda:0, fundus UNet 64->1024, 3x256^2 (128 rows per "
+          f"rank), batch 4+4, bf16 autocast, {DP_STEPS} steps: replicas "
+          f"bit-equal (max |d| 0), uniform_rng launches "
+          f"{[o['bf16']['launches'] for o in res]}; vs world 1: first-step "
+          f"losses max rel |d| {loss_err:.2e} (bar {DP_LOSS_RTOL:.2e}), "
+          f"after {DP_STEPS} steps ||d||/||update|| student "
+          f"{shares['student.']:.2e} teacher {shares['teacher.']:.2e} "
+          f"momentum {shares['momentum.']:.2e} (bar {DP_UPDATE_SHARE}); "
+          f"float32 (--amp 0), 1 step, the gradient vs world 1's, "
+          f"||d||/||g||: {grad:.2e} (bar {DP_GRAD_SHARE}) | {card}",
+          flush=True)
+    missed = [name for name, miss in (
+        ("DP_LOSS_RTOL", zero_err > DP_LOSS_RTOL),
+        ("DP_UPDATE_SHARE", max(zero.values()) > DP_UPDATE_SHARE),
+        ("DP_GRAD_SHARE", zero_grad > DP_GRAD_SHARE)) if miss]
+    print(f"[spatial] (b) the same runs with the halo rows zeroed: bf16 "
+          f"first-step losses {zero_err:.2e}, student "
+          f"{zero['student.']:.2e} teacher {zero['teacher.']:.2e} momentum "
+          f"{zero['momentum.']:.2e}; float32 gradient {zero_grad:.2e}; "
+          f"misses {missed or 'no bar'} | {card}", flush=True)
+    if loss_err > DP_LOSS_RTOL or max(shares.values()) > DP_UPDATE_SHARE \
+            or grad > DP_GRAD_SHARE:
+        fail(f"1x2 vs world 1: losses {loss_err}, shares {shares}, float32 "
+             f"gradient {grad}")
+    if not missed:
+        fail(f"the zeroed-halo control meets every bar: losses {zero_err}, "
+             f"shares {zero}, float32 gradient {zero_grad}: the phase "
+             f"cannot see a halo fault")
+
+    t0 = time.perf_counter()
+    res4 = run_dp_ranks(work, 4, [("f32", f32, 1, None)], None, spatial=2,
+                        tag="sp22")
+    wall_c = time.perf_counter() - t0
+    for r, out in enumerate(res4):
+        o = out["f32"]
+        check_losses(o["metrics"], f"2x2 rank {r}")
+        if o["replica_diff"] != 0.0 or o["launches"] != 1:
+            fail(f"2x2 rank {r}: replica difference {o['replica_diff']}, "
+                 f"uniform_rng launches {o['launches']} in 1 step")
+    grad = update_share(res4[0]["f32"]["state"], ref_grad, {}, "momentum.")
+    print(f"[spatial] (c) 2 x 2 mesh (data 2 x space 2), 4 Gloo ranks "
+          f"sharing cuda:0, float32 (--amp 0), 1 step: replicas bit-equal, "
+          f"uniform_rng launches {[o['f32']['launches'] for o in res4]}; "
+          f"the gradient vs world 1's, ||d||/||g||: {grad:.2e} (bar "
+          f"{DP_GRAD_SHARE}) | {card}", flush=True)
+    if grad > DP_GRAD_SHARE:
+        fail(f"2x2 float32 gradient vs world 1: {grad} against "
+             f"{DP_GRAD_SHARE}")
+    print(f"[spatial] img/s over each run's steps with the first (several "
+          f"processes sharing one card: not a scaling figure; phase 13 b, 2 "
+          f"data ranks, bf16: {gloo_img_s:.2f}) and peak GiB per rank "
+          f"(world 1, float32, 1 step: {peak_f32:.2f}); spawn and runs "
+          f"{wall_a:.1f} s (1 x 2), {wall_c:.1f} s (2 x 2) | {card}",
+          flush=True)
+    for label, ranks, steps in [(f"1x2 {run}", [o[run] for o in res], n)
+                                for run, _, n, _ in runs] \
+            + [("2x2 f32", [o["f32"] for o in res4], 1)]:
+        peaks = ", ".join(f"{o['peak_gib']:.2f}" for o in ranks)
+        print(f"[spatial]   {label}: {steps * batch / ranks[0]['secs']:.2f} "
+              f"img/s over {steps} step(s), peak {peaks} GiB", flush=True)
+    out = {f"1x2_{run}": [o[run]["launches"] for o in res]
+           for run, *_ in runs}
+    out["2x2_f32"] = [o["f32"]["launches"] for o in res4]
+    return out
 
 
 def train_entry(argv, env):
@@ -1881,11 +2047,14 @@ def main():
         timed("zoo short", phase_zoo_short, card, work)
         timed("prostate, mnms", phase_prostate_mnms, card, work)
         free_card()
-        dp_launches = timed("data parallel", phase_data_parallel, card, work,
-                            main_img_s)
+        gloo_img_s, dp_launches = timed("data parallel", phase_data_parallel,
+                                        card, work, main_img_s)
         free_card()
         instruments_launches = timed("instruments", phase_instruments, card,
                                      work)
+        free_card()
+        spatial_launches = timed("spatial", phase_spatial, card, work,
+                                 gloo_img_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("rng timing", phase_rng_timing, card, kernels[0])
@@ -1896,6 +2065,7 @@ def main():
             k["zoo_path_launches"] = zoo_launches
             k["data_parallel_launches"] = dp_launches
             k["instruments_launches"] = instruments_launches
+            k["spatial_launches"] = spatial_launches
             k["bit_equal_at"] = ["(16,256,256)", "(3,37,37)",
                                  "(16,384,384)", "(16,288,288)"]
         else:

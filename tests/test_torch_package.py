@@ -47,7 +47,7 @@ print(" ".join(mods))
         "ops.fused_conv", "utils.boundary", "utils.boundary_native",
         "engine.evaluator", "engine.checkpoint", "test", "nan_replay",
         "parity_runs", "data.dl_utils", "data.transform", "data.ssda",
-        "data.extra_transforms")} <= mods
+        "data.extra_transforms", "parallel.spatial")} <= mods
 
 
 def test_no_cpu_fallback(tmp_path, monkeypatch):

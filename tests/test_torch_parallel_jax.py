@@ -21,6 +21,7 @@ this file's time.) The replicas are bit-equal.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -38,10 +39,12 @@ def test_fundus_step_on_two_ranks_matches_jax(tmp_path):
     check_two_ranks_against_jax(tmp_path, "fundus", 0, 0.1, 1)
 
 
-def check_two_ranks_against_jax(tmp_path, dataset, epoch, choice_th, seed):
-    """One step of `dataset` from the state test_torch_step.py draws at
-    `epoch`, `choice_th` and `seed`, with the bars of the module
-    docstring."""
+@functools.lru_cache(maxsize=None)
+def jax_step(dataset, epoch, choice_th, seed):
+    """The JAX step's inputs and results from the state test_torch_step.py
+    draws: (port HyperParams, the port's state payload, the teacher input,
+    the port's input dict, the JAX loss, its terms, its gradients, the JAX
+    state)."""
     jhp = _hp(dataset)
     hp = pstep.HyperParams(**dataclasses.asdict(jhp))
     r = np.random.RandomState(seed)
@@ -66,9 +69,22 @@ def check_two_ranks_against_jax(tmp_path, dataset, epoch, choice_th, seed):
             "lq_valid", "ratio_before", "ratio_after"]
     pinp = {k: _t(inp[k]) for k in keys}
     pinp["cons_w"] = float(np.asarray(inp["cons_w"]))
-    args = (hp, td.state_payload(ps), _t(tea_in), pinp)
-    res = td.run_ranks(tmp_path, 2, td.run_fed_step, *args)
-    assert [x["replica_diff"] for x in res] == [0.0, 0.0]
+    return (hp, td.state_payload(ps), _t(tea_in), pinp, loss_j, aux_j,
+            grads_j, js)
+
+
+def check_two_ranks_against_jax(tmp_path, dataset, epoch, choice_th, seed,
+                                world=2, spatial=1):
+    """One step of `dataset` from the state test_torch_step.py draws at
+    `epoch`, `choice_th` and `seed`, on `world` ranks laid out as
+    (world // spatial) x spatial, with the bars of the module
+    docstring."""
+    hp, payload, tea_in, pinp, loss_j, aux_j, grads_j, js = jax_step(
+        dataset, epoch, choice_th, seed)
+    args = (hp, payload, tea_in, pinp)
+    res = td.run_ranks(tmp_path, world, td.run_fed_step, *args,
+                       spatial=spatial)
+    assert [x["replica_diff"] for x in res] == [0.0] * world
     got = res[0]
     with td.one_thread():
         one = td.run_fed_step(None, *args)

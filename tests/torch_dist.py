@@ -1,4 +1,5 @@
-"""Helpers of the data-parallel tests (tests/test_torch_parallel*.py):
+"""Helpers of the mesh tests (tests/test_torch_parallel*.py and
+tests/test_torch_spatial*.py):
 ranks spawned with torch.multiprocessing, one thread each, over a Gloo
 group whose rendezvous is a FileStore in the test's temporary directory
 (no TCP port, so parallel test workers cannot collide), and the functions
@@ -24,25 +25,26 @@ from ust_run_tpu_torch.semisup import step as pstep
 TIMEOUT_S = 300
 
 
-def _entry(rank, world, store, out_dir, fn, args):
+def _entry(rank, world, store, out_dir, fn, args, spatial):
     torch.set_num_threads(1)
     mesh = init_distributed(backend="gloo", device="cpu",
                             init_method=f"file://{store}", rank=rank,
-                            world_size=world)
+                            world_size=world, spatial=spatial)
     try:
         torch.save(fn(mesh, *args), os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         mesh.close()
 
 
-def run_ranks(tmp_path, world, fn, *args, timeout=TIMEOUT_S):
-    """fn(mesh, *args) on `world` spawned ranks; returns their results.
-    A rank that raises fails the call with its traceback; ranks still
-    running after `timeout` seconds are killed and the call fails."""
+def run_ranks(tmp_path, world, fn, *args, timeout=TIMEOUT_S, spatial=1):
+    """fn(mesh, *args) on `world` spawned ranks, laid out as a
+    (world // spatial) x spatial mesh; returns their results. A rank that
+    raises fails the call with its traceback; ranks still running after
+    `timeout` seconds are killed and the call fails."""
     out = tmp_path / f"{fn.__name__}_w{world}_{time.monotonic_ns()}"
     out.mkdir()
     ctx = mp.start_processes(_entry, args=(world, str(out / "store"),
-                                           str(out), fn, args),
+                                           str(out), fn, args, spatial),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:

@@ -3,10 +3,11 @@ the port's, from the same weights, on the same index batches, each with
 its own random draws (augmentation, FDA, CutMix), float32.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_paired_run.py \
-        [--steps 300] [--every 10] [--init jax|port] [--out FILE.json]
+        [--steps 300] [--every 10] [--init jax|port] [--seed 1337] \
+        [--eval_every 0] [--out FILE.json]
 
 It separates the step's math from its inputs over a run's first epoch
-(the fundus lane's flags: `--lb_domain 1 --lb_num 8 --seed 1337` on the 30k
+(the fundus lane's flags: `--lb_domain 1 --lb_num 8 --seed S` on the 30k
 schedule, the synthetic corpus of `data.synthetic` with its defaults,
 decoded at patch 64: the CPU cannot train the full 256 in reasonable
 time). Both start from the initial weights that
@@ -20,6 +21,9 @@ carried across by convert.py or ust_run_tpu.utils.torch_import). Every
     `ulb_x_w`) and strong (`ulb_x_s`, `ulb_x_s_ul`, `ulb_x_s_lu`,
     `lq_s`) batches;
   * the loss.
+Every `--eval_every` steps (0: never) it also evaluates both packages'
+teacher (EMA) and student on the synthetic test split, each through its
+own trainer's evaluator at the same patch, and records the average dice.
 The indices come from the port's samplers and go to both steps. The
 draws differ (the frameworks' RNG streams differ), so the two columns
 agree in distribution, not value: a statistic that drifts apart over the
@@ -82,9 +86,10 @@ def port_bn_max(model):
     return weight_health(model)[1], inc
 
 
-def paired_run(root, workdir, steps, patch, every, init="jax"):
+def paired_run(root, workdir, steps, patch, every, init="jax", seed=1337,
+               eval_every=0):
     argv = ["--dataset", "fundus", "--lb_domain", "1", "--lb_num", "8",
-            "--seed", "1337", "--num_eval_iter", "500", "--eval_batch", "4",
+            "--seed", str(seed), "--num_eval_iter", "500", "--eval_batch", "4",
             "--amp", "0", "--unroll_steps", "1", "--patch_override",
             str(patch), "--data_root", root]
     jt = JaxTrainer(jcfg.config_from_args(
@@ -117,6 +122,18 @@ def paired_run(root, workdir, steps, patch, every, init="jax"):
 
     build_inputs = pstep.build_inputs
     pstep.build_inputs = recording
+    def evaluate(it):
+        """Average dice of each package's teacher (EMA) and student."""
+        return {"jax": {k: float(np.mean(jt.evaluator.run(p, b, it,
+                                                         ema=k == "ema")))
+                        for k, p, b in (("ema", js.ema_params,
+                                         js.ema_batch_stats),
+                                        ("stu", js.params, js.batch_stats))},
+                "port": {k: float(np.mean(pt.evaluator.run(m, it,
+                                                           ema=k == "ema")))
+                         for k, m in (("ema", ps.teacher),
+                                      ("stu", ps.student))}}
+
     records = []
     try:
         for it in range(steps + 1):
@@ -125,6 +142,12 @@ def paired_run(root, workdir, steps, patch, every, init="jax"):
                                                 port_bn_max(ps.student))
                 records.append({"iter": it, "jax": {"bn": jmods, "inc": jinc},
                                 "port": {"bn": pmods, "inc": pinc}})
+            if eval_every and it and (it % eval_every == 0 or it == steps):
+                if records[-1]["iter"] != it:
+                    records.append({"iter": it, "jax": {}, "port": {}})
+                dice = evaluate(it)
+                for w in ("jax", "port"):
+                    records[-1][w]["dice"] = dice[w]
             if it == steps:
                 break
             idx, dev_idx = pt._next_batch()
@@ -155,18 +178,22 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--every", type=int, default=10)
     ap.add_argument("--init", choices=("jax", "port"), default="jax")
+    ap.add_argument("--seed", type=int, default=1337)
+    ap.add_argument("--eval_every", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     t0 = time.time()
     with tempfile.TemporaryDirectory() as work:
         root = generate("fundus", os.path.join(work, "data"))
         records = paired_run(root, work, args.steps, PATCH, args.every,
-                             args.init)
+                             args.init, args.seed, args.eval_every)
     print("| iter | inc var max JAX / port | inc mean max JAX / port | "
           "bn max module JAX / port | loss JAX / port |")
     print("|---|---|---|---|---|")
     for r in records:
         j, p = r["jax"], r["port"]
+        if "bn" not in j:
+            continue
         top = [max(x["bn"], key=x["bn"].get) for x in (j, p)]
         loss = (f"{j['loss']:.4f} / {p['loss']:.4f}" if "loss" in j
                 else "-")
@@ -184,7 +211,19 @@ def main(argv=None):
                     for w in ("jax", "port"))
             cells.append(f"{s} {a:.4f} / {b:.4f}")
         print(f"  {k}: " + ", ".join(cells))
-    print(f"\n{args.steps} steps at patch {PATCH}, seed 1337, "
+    evals = [r for r in records if "dice" in r["jax"]]
+    if evals:
+        print("\n| seed | iteration | JAX EMA / port EMA | "
+              "JAX student / port student | up4 BN max JAX / port |")
+        print("|---|---|---|---|---|")
+        for r in evals:
+            j, p = r["jax"], r["port"]
+            up4 = (f"{j['bn']['up4']:.4f} / {p['bn']['up4']:.4f}"
+                   if "bn" in j else "-")
+            print(f"| {args.seed} | {r['iter']} | {j['dice']['ema']:.4f} / "
+                  f"{p['dice']['ema']:.4f} | {j['dice']['stu']:.4f} / "
+                  f"{p['dice']['stu']:.4f} | {up4} |")
+    print(f"\n{args.steps} steps at patch {PATCH}, seed {args.seed}, "
           f"{args.init}'s initial weights: "
           f"{time.time() - t0:.1f} s")
     if args.out:

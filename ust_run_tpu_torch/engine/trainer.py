@@ -15,7 +15,7 @@ ust_run_tpu/engine/trainer.py).
     the best-student snapshot (train.py:913-954; trainer.py:463-532);
   * the rolling checkpoint, written by a worker thread from a host copy,
     and `--load` resume (train.py:542-548, 955-958);
-  * data parallelism (trainer.py:104-110): with a `parallel.DataMesh`,
+  * data parallelism (trainer.py:104-110): with a `parallel.Mesh`,
     one process per rank on cuda:LOCAL_RANK (or the device `--device`
     names), both models' BatchNorm synchronised over the ranks, each step
     sharded as parallel/mesh.py sets out and the evaluation split over
@@ -153,7 +153,7 @@ class Trainer:
                                         student, teacher)
         if mesh is not None:
             for model in (self.state.student, self.state.teacher):
-                parallel.sync_batchnorm(model, mesh)
+                parallel.bind_mesh(model, mesh)
         if cfg.model.startswith("deeplabv2"):
             self._load_pretrained_backbone()
         self.writer = MetricWriter(os.path.join(snapshot_path, "log")) \

@@ -60,6 +60,13 @@ def _group_consts(group_sizes, total, hw, device):
             torch.as_tensor(corr, device=device))
 
 
+def slab_hw(sizes, h, w):
+    """The global H*W of a layer whose rank holds an (h, w) row slab of
+    each image: the input's global height (sizes.height, a GroupSizes')
+    scaled by the layer's width over the input's."""
+    return sizes.height * w // sizes.width * w
+
+
 class GroupedBatchNorm(nn.Module):
     """BatchNorm2d with per-group train-mode statistics.
 
@@ -76,13 +83,16 @@ class GroupedBatchNorm(nn.Module):
     and buffer names follow torch.nn.BatchNorm2d, so state_dicts keep
     upstream's layout.
 
-    With `mesh` set (parallel.sync_batchnorm), the batch is this rank's
+    With `mesh` set (parallel.bind_mesh), the batch is this rank's
     slice of each group: `group_sizes` is the parallel.GroupSizes that
     mesh.shard returned (local sizes, possibly 0, and the global ones).
     Each rank averages its samples' moments over the global sizes and the
     averages are summed over the ranks, forward and backward
     (mesh.sum_sharded): the statistics, and so the running statistics
-    every rank folds, are those of the global groups.
+    every rank folds, are those of the global groups. On a space axis the
+    rows are a slab of each image (GroupSizes.height set): the per-sample
+    moments are the slab's sums over the image's global H*W
+    (`slab_hw`), and so is the unbiased-variance count.
     """
 
     mesh = None
@@ -109,21 +119,27 @@ class GroupedBatchNorm(nn.Module):
         if group_sizes is None:
             assert n % groups == 0, f"batch {n} not divisible by {groups}"
             group_sizes = (n // groups,) * groups
-        total = group_sizes
+        total, hw = group_sizes, h * w
         if self.mesh is not None:
             assert hasattr(group_sizes, "total"), \
                 "a synchronised GroupedBatchNorm takes mesh.shard's GroupSizes"
             total = group_sizes.total
+            if group_sizes.height is not None:
+                hw = slab_hw(group_sizes, h, w)
         group_sizes = tuple(group_sizes)
         g = len(group_sizes)
         assert sum(group_sizes) == n, (group_sizes, n)
         equal = len(set(group_sizes)) == 1
-        seg, avg, corr = _group_consts(group_sizes, tuple(total), h * w,
+        seg, avg, corr = _group_consts(group_sizes, tuple(total), hw,
                                        x.device)
 
         with torch.autocast(device_type=x.device.type, enabled=False):
-            m1 = torch.mean(x, dim=(2, 3), dtype=torch.float32)    # (n, c)
-            m2 = torch.mean(torch.square(x.float()), dim=(2, 3))
+            if hw == h * w:
+                m1 = torch.mean(x, dim=(2, 3), dtype=torch.float32)  # (n, c)
+                m2 = torch.mean(torch.square(x.float()), dim=(2, 3))
+            else:       # a row slab: its sums over the image's H*W
+                m1 = torch.sum(x, dim=(2, 3), dtype=torch.float32) / hw
+                m2 = torch.sum(torch.square(x.float()), dim=(2, 3)) / hw
             mean, mean2 = avg @ m1, avg @ m2                        # (g, c)
             if self.mesh is not None:
                 mean, mean2 = self.mesh.sum_sharded(

@@ -5,6 +5,11 @@ Five levels, widths 64->1024, DoubleConv = (3x3 conv no-bias -> BN ->
 ReLU) x2, Down = 2x2 maxpool + DoubleConv, Up = 2x2 stride-2 transpose
 conv + pad-to-match + concat [skip, upsampled] + DoubleConv, 1x1 out conv.
 
+On a mesh with a space axis each rank runs a slab of whole rows of every
+image (blocks of 16, the total downsampling): the 3x3 convolutions take
+halo rows from their neighbours, and the pools, transpose convolutions,
+concatenations and the 1x1 out conv need nothing.
+
 Module names follow upstream's torch keys (`inc.double_conv.N`,
 `downN.maxpool_conv.1.double_conv.N`, `upN.up`, `upN.conv.double_conv.N`,
 `outc.conv`), so `state_dict()` has upstream's layout.
@@ -23,10 +28,18 @@ from ust_run_tpu_torch.models.layers import (GroupedBatchNorm,
                                              torch_bias_init_,
                                              torch_conv_init_,
                                              torch_convT_init_)
+from ust_run_tpu_torch.parallel import spatial
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 -> BN -> ReLU) x2 (reference unet_parts.py:8-25)."""
+    """(conv3x3 -> BN -> ReLU) x2 (reference unet_parts.py:8-25).
+
+    With `mesh` bound (parallel.bind_mesh) and a call on a row slab (its
+    GroupSizes carry the image's height), each 3x3 convolution takes its
+    halo rows from the neighbouring slabs (parallel/spatial.py) with the
+    module's own weight."""
+
+    mesh = None
 
     def __init__(self, in_ch, out_ch):
         super().__init__()
@@ -40,9 +53,16 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x, **gkw):
+        slab = getattr(gkw.get("group_sizes"), "height", None) is not None
+        assert not slab or self.mesh is not None, \
+            "a row slab needs the mesh bound (parallel.bind_mesh)"
         for layer in self.double_conv:
-            x = layer(x, **gkw) if isinstance(layer, GroupedBatchNorm) \
-                else layer(x)
+            if isinstance(layer, GroupedBatchNorm):
+                x = layer(x, **gkw)
+            elif slab and isinstance(layer, nn.Conv2d):
+                x = spatial.conv3x3(x, layer.weight, self.mesh)
+            else:
+                x = layer(x)
         return x
 
 

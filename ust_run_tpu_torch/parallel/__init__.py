@@ -1,3 +1,3 @@
 from ust_run_tpu_torch.parallel.mesh import (  # noqa: F401
-    DataMesh, GroupSizes, check_num_devices, init_distributed, shard_slice,
-    sync_batchnorm)
+    DataMesh, GroupSizes, Mesh, bind_mesh, check_num_devices,
+    init_distributed, shard_slice, sync_batchnorm)

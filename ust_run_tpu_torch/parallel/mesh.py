@@ -1,44 +1,58 @@
-"""Data parallelism over processes (port of ust_run_tpu/parallel/mesh.py).
+"""The device mesh over processes (port of ust_run_tpu/parallel/mesh.py).
 
-The JAX package shards each batch over the "data" axis of a
-`jax.sharding.Mesh` and lets XLA insert the collectives. The port's idiom
-is one process per GPU, started by `torchrun`, with `torch.distributed`
-(NCCL on the card, Gloo on the CPU). A `DataMesh` is that axis: this
-process's rank, the world size, the process group and the rank's device.
+The JAX package lays its devices out as a 2-D `jax.sharding.Mesh` with
+axes ("data", "space") and lets XLA insert the collectives. The port's
+idiom is one process per rank, started by `torchrun` or spawned, with
+`torch.distributed` (NCCL on the card, Gloo on the CPU). A `Mesh` is the
+same 2-D layout over the process group: `init_distributed(...,
+spatial=k)` puts rank r at data index r // k and space index r % k, as
+`make_mesh(n, spatial=k)` reshapes its devices to (n // k, k)
+(mesh.py:40-45); k must be a positive divisor of the world size.
 
 The contract is the JAX mesh's: N ranks compute what one process computes
 with the same global batch, within float summation order.
   * Replicated, identical on every rank: all state (both models, SGD
     momentum, queue, LQ carry, choice_th, the generators, the samplers)
     and every computation of the step outside the two model calls, so
-    every rank draws the same random numbers whatever N is.
+    every rank draws the same random numbers whatever the mesh is.
   * Sharded: each rank takes a contiguous slice of every group of a model
-    call (`shard`; a slice may be empty) and the loss terms of its slice.
+    call over the data axis (`shard`; a slice may be empty) and, with a
+    space axis, a contiguous run of image rows over it: whole blocks of
+    ROW_BLOCK = 16 rows (the UNet's total downsampling, 2^4), so that
+    every level of the UNet holds whole rows on every rank and its pools,
+    transpose convs and concatenations stay local. Each rank computes the
+    loss terms of its (samples x rows) share.
   * Collectives, the only ones: GroupedBatchNorm's per-group moment sums
-    (forward and backward; `shard` hands it the global group sizes as
-    `GroupSizes`), the loss terms' partial sums, the two
-    logit gathers and the gradient all-reduce. Each is an `all_reduce`
-    (sum or max) or a `broadcast`, the two collectives Gloo offers for
-    CUDA tensors, so one code path runs under NCCL, under Gloo on the CPU
-    and under Gloo on CUDA tensors; a gather is the sum all-reduce of a
-    zero buffer in which each rank fills its own rows.
+    (forward and backward; `shard` hands it the global group sizes and
+    image height as `GroupSizes`), the 3x3 convolutions' halo rows over
+    the space group (parallel/spatial.py), the loss terms' partial sums,
+    the two logit gathers and the gradient all-reduce. Each is an
+    `all_reduce` (sum or max) or a `broadcast`, the two collectives Gloo
+    offers for CUDA tensors, so one code path runs under NCCL, under Gloo
+    on the CPU and under Gloo on CUDA tensors; a gather (and a halo
+    exchange) is the sum all-reduce of a zero buffer in which each rank
+    fills its own rows.
 
 Gradient convention. The loss is identical on every rank, and each rank's
-backward produces only its own samples' share of the global gradient;
-`all_reduce_grads` then sums the shares. A sum all-reduce inside the graph
-therefore has one of two backward rules, by who consumes its result:
+backward produces only its own (samples x rows) share of the global
+gradient; `all_reduce_grads` then sums the shares over the world. A sum
+all-reduce inside the graph therefore has one of two backward rules, by
+who consumes its result:
   * `sum_replicated`: the result feeds a computation every rank repeats
     (the loss from its partial sums). Every rank already holds the full
     gradient of the result, so the backward passes it through unchanged.
     An all-reduce here would count every share N times.
-  * `sum_sharded`: the result feeds each rank's own samples
+  * `sum_sharded`: the result feeds each rank's own share
     (GroupedBatchNorm's statistics). Each rank's upstream gradient is only
-    its samples' share, so the backward sums it over the ranks (the
+    its share's, so the backward sums it over the ranks (the
     SyncBatchNorm pattern).
 `all_reduce_grads` sums; `DistributedDataParallel` would average, and is
 not used.
 
-The mesh's "space" axis (spatial model parallelism) is not ported.
+Differences from GSPMD, deliberate: an image whose height is not a
+multiple of ROW_BLOCK, or has fewer blocks than the space axis has ranks
+(patch 32 over space 4), raises a ValueError where GSPMD pads; and only
+the UNet runs on a space axis (`bind_mesh` raises for the zoo).
 """
 
 import dataclasses
@@ -59,6 +73,25 @@ def shard_slice(n, rank, world):
     return slice(start, start + base + (rank < extra))
 
 
+ROW_BLOCK = 16
+
+
+def wire_dtype(dtype):
+    """The dtype a tensor travels in through a sum all-reduce: float32 for
+    16-bit floats (which it holds exactly, and which every backend sums),
+    else its own."""
+    return torch.float32 if dtype in (torch.float16, torch.bfloat16) \
+        else dtype
+
+
+def check_spatial(spatial, world):
+    """make_mesh's validation of the space axis (mesh.py:35-39)."""
+    if spatial <= 0 or world % spatial != 0:
+        raise ValueError(
+            f"spatial axis size {spatial} must be a positive divisor of "
+            f"the mesh size {world}")
+
+
 def check_num_devices(num_devices, world):
     """`--num_devices` against the ranks (make_mesh's validation,
     mesh.py:30-39): it names the mesh size, and the port's mesh is the
@@ -77,11 +110,15 @@ def check_num_devices(num_devices, world):
 class GroupSizes(tuple):
     """A rank's local group sizes (the tuple itself) and, as `total`, the
     global batch's group sizes they were cut from: what a sharded
-    GroupedBatchNorm divides its summed moments by."""
+    GroupedBatchNorm divides its summed moments by. On a space axis,
+    `height` and `width` are the model input's global height and width
+    (None without one): the rows are a slab of the image, and a layer at
+    width w spans height * w // width rows in all."""
 
-    def __new__(cls, local, total):
+    def __new__(cls, local, total, height=None, width=None):
         self = super().__new__(cls, local)
         self.total = tuple(total)
+        self.height, self.width = height, width
         return self
 
 
@@ -106,44 +143,86 @@ class _SumAllReduce(torch.autograd.Function):
 
 
 @dataclasses.dataclass
-class DataMesh:
-    """The data axis: `world` ranks, this one `rank`, collectives over
-    `group` on tensors of `device`."""
+class Mesh:
+    """The 2-D mesh: `world` ranks as (world // space) x `space`, this one
+    `rank`; collectives over the world `group` and over this rank's
+    `space_group` (the ranks of its data index), on tensors of
+    `device`."""
     rank: int
     world: int
     device: torch.device
     group: Any = None
+    space: int = 1
+    space_group: Any = None
+
+    def __post_init__(self):
+        check_spatial(self.space, self.world)
+
+    @property
+    def data(self):
+        return self.world // self.space
+
+    @property
+    def data_index(self):
+        return self.rank // self.space
+
+    @property
+    def space_index(self):
+        return self.rank % self.space
 
     # ------ layout ---------------------------------------------------
+    def row_slice(self, height):
+        """This rank's rows of an image `height` rows high: whole blocks
+        of ROW_BLOCK rows, cut over the space axis as `shard_slice` cuts
+        samples (288 rows over 4 ranks: 5, 5, 4, 4 blocks)."""
+        if self.space == 1:
+            return slice(0, height)
+        blocks, rest = divmod(height, ROW_BLOCK)
+        if rest or blocks < self.space:
+            raise ValueError(
+                f"a space axis of {self.space} ranks needs an image height "
+                f"that is a multiple of {ROW_BLOCK} rows with at least one "
+                f"block of {ROW_BLOCK} per rank; got {height} rows")
+        sl = shard_slice(blocks, self.space_index, self.space)
+        return slice(sl.start * ROW_BLOCK, sl.stop * ROW_BLOCK)
+
     def shard(self, x, sizes):
-        """x: rows made of groups of `sizes` rows -> (this rank's rows: a
-        contiguous slice of each group, the local group sizes as
+        """x: NHWC rows made of groups of `sizes` rows -> (this rank's
+        rows: a contiguous slice of each group over the data axis and,
+        with a space axis, its image rows; the local group sizes as
         GroupSizes)."""
         parts, local, start = [], [], 0
         for n in sizes:
-            sl = shard_slice(n, self.rank, self.world)
+            sl = shard_slice(n, self.data_index, self.data)
             parts.append(x[start + sl.start:start + sl.stop])
             local.append(sl.stop - sl.start)
             start += n
         rows = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return rows, GroupSizes(local, sizes)
+        if self.space == 1:
+            return rows, GroupSizes(local, sizes)
+        return (rows[:, self.row_slice(x.shape[1])].contiguous(),
+                GroupSizes(local, sizes, x.shape[1], x.shape[2]))
 
-    def gather(self, local, sizes):
+    def gather(self, local, sizes, height=None):
         """The inverse of `shard`: every group's rows on every rank, bit
         for bit (a sum all-reduce of a zero buffer holding one rank's
-        rows at each position). Not differentiable. 16-bit floats travel
-        as float32, which holds them exactly and which every backend
-        sums."""
-        dtype = torch.float32 if local.dtype in (torch.float16,
-                                                 torch.bfloat16) \
-            else local.dtype
-        out = local.new_zeros((sum(sizes),) + tuple(local.shape[1:]),
-                              dtype=dtype)
+        share at each position); `height` is the image's global height,
+        which a space axis needs. Not differentiable. 16-bit floats travel
+        as float32 (`wire_dtype`)."""
+        dtype = wire_dtype(local.dtype)
+        shape, rows = tuple(local.shape[1:]), ()
+        if self.space > 1:
+            if height is None:
+                raise ValueError("gather over a space axis needs the "
+                                 "image's global height")
+            shape, rows = (height,) + shape[1:], (self.row_slice(height),)
+        out = local.new_zeros((sum(sizes),) + shape, dtype=dtype)
         start = pos = 0
         for n in sizes:
-            sl = shard_slice(n, self.rank, self.world)
+            sl = shard_slice(n, self.data_index, self.data)
             k = sl.stop - sl.start
-            out[start + sl.start:start + sl.stop] = local[pos:pos + k]
+            out[(slice(start + sl.start, start + sl.stop),) + rows] = \
+                local[pos:pos + k]
             start += n
             pos += k
         dist.all_reduce(out, group=self.group)
@@ -210,19 +289,35 @@ class DataMesh:
         dist.destroy_process_group()
 
 
-def sync_batchnorm(model, mesh):
-    """Point every GroupedBatchNorm of `model` at `mesh`: in train mode its
-    statistics become means over the global batch."""
+DataMesh = Mesh     # the name of the data-only mesh before the space axis
+
+
+def bind_mesh(model, mesh):
+    """Bind `mesh` to every GroupedBatchNorm of `model` (in train mode its
+    statistics become those of the global batch) and, on a space axis, to
+    the UNet's DoubleConvs (their 3x3 convolutions take halo rows). Only
+    the UNet runs on a space axis: a dilated convolution needs a halo as
+    wide as its dilation (DeepLab's ASPP reaches 24)."""
     from ust_run_tpu_torch.models.layers import GroupedBatchNorm
+    from ust_run_tpu_torch.models.unet import DoubleConv, UNet
+    if mesh.space > 1 and not isinstance(model, (UNet, GroupedBatchNorm)):
+        raise ValueError(
+            f"the space axis shards only the UNet; {type(model).__name__} "
+            f"cannot run on a mesh with {mesh.space} space ranks (its "
+            f"convolutions take no halo rows)")
     for mod in model.modules():
-        if isinstance(mod, GroupedBatchNorm):
+        if isinstance(mod, (GroupedBatchNorm, DoubleConv)):
             mod.mesh = mesh
     return model
 
 
+sync_batchnorm = bind_mesh
+
+
 def init_distributed(backend=None, device="cuda", init_method="env://",
-                     rank=None, world_size=None) -> Optional[DataMesh]:
-    """Start the process group (counterpart of cli.maybe_init_distributed).
+                     rank=None, world_size=None, spatial=1) -> Optional[Mesh]:
+    """Start the process group (counterpart of cli.maybe_init_distributed)
+    and lay the ranks out as a (world // spatial) x spatial mesh.
 
     With `rank` and `world_size` None, reads torchrun's RANK, WORLD_SIZE
     and LOCAL_RANK (and, for the default `env://`, MASTER_ADDR and
@@ -230,15 +325,19 @@ def init_distributed(backend=None, device="cuda", init_method="env://",
     runs the single-process path. The rank's device is `device`, with a
     bare "cuda" taken as cuda:LOCAL_RANK (cuda:rank when `rank` and
     `world_size` are given). The backend is NCCL for a CUDA device and
-    Gloo for the CPU unless `backend` names one. A failure raises; nothing
-    carries on without the group."""
+    Gloo for the CPU unless `backend` names one. `spatial` must be a
+    positive divisor of the world size (ValueError, as make_mesh); with
+    spatial > 1 every rank creates every space group, in order. A failure
+    raises; nothing carries on without the group."""
     if rank is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
+        check_spatial(spatial, world_size)
         if world_size <= 1:
             return None
         rank = int(os.environ["RANK"])
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
     else:
+        check_spatial(spatial, world_size)
         local_rank = rank
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -251,5 +350,14 @@ def init_distributed(backend=None, device="cuda", init_method="env://",
         kw["device_id"] = dev
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size, **kw)
-    return DataMesh(rank=rank, world=world_size, device=dev,
-                    group=dist.group.WORLD)
+    space_group = None
+    if spatial == world_size:
+        space_group = dist.group.WORLD
+    elif spatial > 1:
+        for d in range(world_size // spatial):
+            g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if d == rank // spatial:
+                space_group = g
+    return Mesh(rank=rank, world=world_size, device=dev,
+                group=dist.group.WORLD, space=spatial,
+                space_group=space_group)

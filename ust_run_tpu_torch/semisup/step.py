@@ -13,14 +13,16 @@ drive each:
     curriculum queue and LQ carry, and the packed metrics.
 `step_fn` chains them with the backward pass.
 
-Each part takes an optional `mesh` (parallel.DataMesh): N ranks then
+Each part takes an optional `mesh` (parallel.Mesh): N ranks then
 compute what one process computes with the same global batch. Everything
 in `build_inputs` and `apply_update` is replicated (every rank draws the
 same numbers); the two model calls are sharded, each rank taking a
-contiguous slice of each group (the LQ group of 1 lives on one rank), and
-their logits are gathered where the replicated part needs them; the loss
-terms reduce their partial sums over the ranks and the gradients are
-summed before SGD (parallel/mesh.py). Without a mesh, nothing changes.
+contiguous slice of each group over the data axis (the LQ group of 1
+lives on one data index) and, with a space axis, a slab of every image's
+rows, and their logits are gathered where the replicated part needs them;
+the loss terms of each rank's share reduce their partial sums over the
+ranks and the gradients are summed before SGD (parallel/mesh.py).
+Without a mesh, nothing changes.
 
 Nothing in the step waits on the device: shapes are fixed, choices are
 `torch.where`, scalars that depend on the step count are computed on the
@@ -198,11 +200,12 @@ def teacher_forward(teacher, tea_in, mesh=None):
             return teacher(tea_in, groups=3)
         sizes = (tea_in.shape[0] // 3,) * 3
         x, local = mesh.shard(tea_in, sizes)
-        return mesh.gather(teacher(x, group_sizes=local), sizes)
+        return mesh.gather(teacher(x, group_sizes=local), sizes,
+                           tea_in.shape[1])
 
 
 def _shard(mesh, x, n):
-    """This rank's slice of a batch of n rows (all of it without a
+    """This rank's share of a batch of n samples (all of it without a
     mesh)."""
     return x if mesh is None else mesh.shard(x, (n,))[0]
 
@@ -344,7 +347,7 @@ def loss_terms(state, inp, hp, mesh=None):
     """The student's one 21-image, 6-group forward (train.py:668-674,
     699-702, 740) and the loss (train.py:816-838) -> (total, aux). The
     LQ group's running-stat fold is conditional on `lq_valid`. With
-    `mesh`, the forward and the loss terms' sums cover this rank's slice
+    `mesh`, the forward and the loss terms' sums cover this rank's share
     of each group; the terms are the global batch's and
     `stu_logits_w` is gathered."""
     b_lb, b_ulb = hp.label_bs, hp.unlabel_bs
@@ -361,7 +364,8 @@ def loss_terms(state, inp, hp, mesh=None):
     (stu_logits_w, logits_lb, logits_ul, logits_lu, logits_s,
      logits_lq) = torch.split(logits, list(local))
     cons_w = inp["cons_w"]
-    kw = dict(multilabel=hp.multilabel, n_classes=hp.num_classes, mesh=mesh)
+    kw = dict(multilabel=hp.multilabel, n_classes=hp.num_classes, mesh=mesh,
+              height=hp.patch)
 
     def mine(name, n=b_ulb):
         return _shard(mesh, inp[name], n)
@@ -386,7 +390,7 @@ def loss_terms(state, inp, hp, mesh=None):
                                  + cons_w * unsup_s)            # :838
     stu_logits_w = stu_logits_w.detach()
     if mesh is not None:
-        stu_logits_w = mesh.gather(stu_logits_w, (b_ulb,))
+        stu_logits_w = mesh.gather(stu_logits_w, (b_ulb,), hp.patch)
     aux = dict(stu_logits_w=stu_logits_w, sup_loss=sup_loss,
                unsup_ul=unsup_ul, unsup_lu=unsup_lu, unsup_s=unsup_s)
     return total, aux

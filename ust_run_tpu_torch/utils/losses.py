@@ -19,8 +19,8 @@ Reduction quirks of the reference kept exactly:
 Every loss is a ratio of sums over the batch, so each is computed in two
 halves: the sums of a batch (the CE mean, the dice sums of
 `_*_dice_sums`), then the ratios (`_soft_dice`, `_multiclass_dice`).
-Under a data-parallel mesh `ce_plus_dice` sums the ranks' shares of the
-CE mean and their dice sums before the ratios (`mesh.sum_replicated`),
+Under a mesh `ce_plus_dice` sums the ranks' shares (samples x rows) of
+the CE mean and their dice sums before the ratios (`mesh.sum_replicated`),
 which gives the loss of the global batch; averaging the ranks' losses
 would not.
 """
@@ -109,12 +109,14 @@ def softmax_ce(logits, target):
 
 
 def ce_plus_dice(logits, target, *, multilabel, n_classes, mask=None,
-                 mesh=None, rows=None):
+                 mesh=None, rows=None, height=None):
     """`ce.mean() + dice(...)` (train.py:816-838); masked CE is
     `(ce * mask).mean()` over all elements. With `mesh`, the arguments are
     this rank's slice (possibly empty) of a global batch of `rows` samples
-    and the loss is the global batch's: this rank's share of the CE mean
-    and its dice sums are summed over the ranks before the ratios."""
+    of `height` rows each (default: the slice's; a space axis gives each
+    rank a slab of them) and the loss is the global batch's: this rank's
+    share of the CE mean and its dice sums are summed over the ranks
+    before the ratios."""
     if multilabel:
         ce = bce_with_logits(logits, target)
         if mask is not None:
@@ -130,8 +132,12 @@ def ce_plus_dice(logits, target, *, multilabel, n_classes, mask=None,
     else:
         # the mean times this rank's share of the elements: at world 1
         # exactly torch.mean, so one rank computes what no mesh computes
-        ce_mean = torch.mean(ce) * (ce.numel() / (rows * ce[0].numel())) \
-            if ce.numel() else torch.sum(ce)
+        if ce.numel():
+            per_sample = ce[0].numel() if height is None \
+                else ce[0].numel() // ce.shape[1] * height
+            ce_mean = torch.mean(ce) * (ce.numel() / (rows * per_sample))
+        else:
+            ce_mean = torch.sum(ce)
         flat = mesh.sum_replicated(
             torch.stack([ce_mean] + [t for s in sums for t in s]))
         ce_mean, *rest = flat.unbind()
