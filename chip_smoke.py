@@ -103,8 +103,9 @@ Phases, one line each (or a few); any failure exits non-zero:
      reproduces its failing iteration on the card (exit 1) and names the
      first module with a non-finite output;
  15. spatial (ust_run_tpu_torch.parallel with a space axis: row slabs
-     of 16-row blocks, halo rows for every 3x3 convolution), fundus at
-     phase 5's full width, Gloo ranks spawned on cuda:0: (a) a 1 x 2 mesh
+     of 16-row blocks, halo rows for every operation spanning rows),
+     fundus at phase 5's full width, Gloo ranks spawned on cuda:0: (a) a
+     1 x 2 mesh
      (data 1 x space 2), bf16, DP_STEPS steps: the replicas bit-equal,
      every loss finite, uniform_rng once per step per rank, the first
      step's losses and the state after the steps within DP_LOSS_RTOL and
@@ -113,8 +114,16 @@ Phases, one line each (or a few); any failure exits non-zero:
      rows zeroed must miss one of those bars (at full width only the
      float32 gradient's does: two rows in 256 barely move a bf16 loss);
      (c) a 2 x 2 mesh on four ranks, float32, one step, whose gradient
-     must lie within DP_GRAD_SHARE of world 1's. Its img/s and peak GiB
-     are several processes sharing one card, not a scaling figure;
+     must lie within DP_GRAD_SHARE of world 1's; then the zoo, float32,
+     one step each, the head's gradient (DeepLab's ASPP, Unet2D's seg1)
+     within DP_GRAD_SHARE of world 1's, the replicas bit-equal,
+     uniform_rng once per rank, and the same step with every halo zeroed
+     beyond the bar: (d) DeepLabV2-R101 on 1 x 2, (e) on 1 x 4 (the
+     ASPP's 24-row halo crosses three 8-row slabs), (f) Unet2D on 1 x 2;
+     the whole gradient's distance printed beside the data axis's alone
+     (2 x 1), which these models' ReLUs keep above the bar. Its img/s
+     and peak GiB are several processes sharing one card, not a scaling
+     figure;
  16. RNG timing: the uniform-field RNG's and torch.rand's device time
      per kernel (torch.profiler) apart from the host's cost per call
      (host clock). Last, so that no phase timed before it runs in a
@@ -132,6 +141,12 @@ has ust_run_tpu_torch.parallel), with `--profile FILE` also phase 6's
 profile (to FILE's stem + `_<i>.json`, with the operators that take
 the most host time). One JSON line per run. Interleave the trees (A B B
 A) to compare them within one call.
+
+`--memory FILE` runs only one float32 step at world 1 of the fundus UNet
+and one of DeepLabV2-R101, each after a warm-up step, with
+torch.cuda.memory's history recorded, and prints and writes to FILE
+(JSON) the allocations live at each step's peak, largest first, by the
+port's innermost frame that made them.
 
 Synthetic data, the trainer's log and the kernel build stay inside the
 checkout (`_smoke/`, `ust_run_tpu_torch/_build/`); `_smoke/` is removed
@@ -1274,7 +1289,8 @@ def planted(fault, world):
         losses.ce_plus_dice = mean_of_local_losses(world)
     elif fault == "zero_halo":
         import torch.nn.functional as F
-        spatial.halo_rows = lambda x, mesh: F.pad(x, (0, 0, 1, 1))
+        spatial.halo_rows = lambda x, mesh, top=1, bottom=1, fill="zeros", \
+            bounds=None: F.pad(x, (0, 0, top, bottom))
 
     def undo():
         for obj, name, v in saved:
@@ -1653,7 +1669,217 @@ def phase_spatial(card, work, gloo_img_s):
     out = {f"1x2_{run}": [o[run]["launches"] for o in res]
            for run, *_ in runs}
     out["2x2_f32"] = [o["f32"]["launches"] for o in res4]
+    out.update(spatial_zoo(card, work))
     return out
+
+
+def zoo_world1(argv):
+    """One float32 step of a zoo model at world 1, no process group: (the
+    SGD momentum after it, i.e. the step's gradient, the names of its
+    head's momentum entries (DeepLab's ASPP, Unet2D's seg1) and its peak
+    GiB)."""
+    import torch
+    with LogRecords():
+        plain, _ = make_trainer(argv)
+    head = {f"momentum.{i}" for i, (name, _) in enumerate(
+        plain.state.student.named_parameters())
+        if name.startswith(("classifier.", "seg1."))}
+    torch.cuda.reset_peak_memory_stats()
+    plain.train_steps(1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grad = {k: v.detach().clone() for k, v in state_tensors(
+        plain.state).items() if k.startswith("momentum.")}
+    plain.close()
+    del plain
+    free_card()
+    return grad, head, peak
+
+
+def grad_shares(state, ref_grad, head):
+    """The whole gradient's and the head's ||d||/||g|| against world 1."""
+    return (update_share(state, ref_grad, {}, "momentum."),
+            update_share({k: state[k] for k in head},
+                         {k: ref_grad[k] for k in head}, {}, "momentum."))
+
+
+def spatial_zoo(card, work):
+    """Phase 15 (d)-(f): the zoo on a space axis, full-width fundus
+    (3x256^2, batch 4+4, float32, the zoo's only numerics), Gloo ranks
+    sharing cuda:0, one step each against world 1's: (d) DeepLabV2-R101
+    on 1 x 2 (16 rows a rank at the stride-8 stages, the ASPP's 24-row
+    halo reaching past the next slab), (e) the same on 1 x 4 (8 rows a
+    rank: the halo crosses three slabs), (f) Unet2D on 1 x 2. The head's
+    gradient (DeepLab's ASPP, Unet2D's seg1) must lie within
+    DP_GRAD_SHARE of world 1's, with the replicas bit-equal and
+    uniform_rng launched once per rank, and the same step with every
+    halo zeroed must miss that bar. The whole gradient's distance is
+    printed beside the one the data axis alone (2 x 1, no halo) reads:
+    in float32 these models' ReLUs amplify a change of the BN moments'
+    summation order past the bar on either axis (PERF.md §6). Returns
+    the RNG kernel's launches in each run."""
+    root = os.path.join(work, "fundus")
+    argv = {model: train_argv(
+        "fundus", root, work, f"sp_{model}", "--device", "cuda:0",
+        "--model", model, "--pretrained_root",
+        os.path.join(work, "no_pretrained"))
+        for model in ("deeplabv2", "unet2d")}
+    refs = {model: zoo_world1(a) for model, a in argv.items()}
+    cases = [("d", "deeplabv2", "DeepLabV2-R101", 2),
+             ("e", "deeplabv2", "DeepLabV2-R101", 4),
+             ("f", "unet2d", "Unet2D", 2)]
+    res = {}
+    for space in (2, 4):
+        runs = [(f"{model}{tail}", argv[model], 1, fault)
+                for _, model, _, k in cases if k == space
+                for tail, fault in (("", None), ("_zero_halo", "zero_halo"))]
+        t0 = time.perf_counter()
+        out = run_dp_ranks(work, space, runs, None, spatial=space,
+                           tag=f"sp_zoo{space}")
+        res[space] = (out, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    data_axis = run_dp_ranks(work, 2, [(model, a, 1, None) for model, a in
+                                       argv.items()], None,
+                             tag="sp_zoo_data")
+    floor = {model: grad_shares(data_axis[0][model]["state"],
+                                *refs[model][:2]) for model in argv}
+    print(f"[spatial] the data axis alone (2 x 1, no halo), float32, 1 "
+          f"step, vs world 1, ||d||/||g|| whole gradient, head: "
+          + ", ".join(f"{m} {w:.2e}, {h:.2e}" for m, (w, h) in floor.items())
+          + f"; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    launches = {}
+    for label, model, name, space in cases:
+        out, wall = res[space]
+        ref_grad, head, ref_peak = refs[model]
+        for r, o in enumerate(out):
+            for run in (model, f"{model}_zero_halo"):
+                check_losses(o[run]["metrics"], f"({label}) rank {r} {run}")
+                if o[run]["replica_diff"] != 0.0 or o[run]["launches"] != 1:
+                    fail(f"({label}) {run} rank {r}: replica difference "
+                         f"{o[run]['replica_diff']}, uniform_rng launches "
+                         f"{o[run]['launches']} in 1 step")
+        (whole, head_d), (zero, head_z) = (
+            grad_shares(out[0][run]["state"], ref_grad, head)
+            for run in (model, f"{model}_zero_halo"))
+        peaks = ", ".join(f"{o[model]['peak_gib']:.2f}" for o in out)
+        print(f"[spatial] ({label}) {name} on 1 x {space} (data 1 x space "
+              f"{space}), {space} Gloo ranks sharing cuda:0, fundus "
+              f"3x256^2 ({256 // space} rows a rank, {32 // space} at the "
+              f"stride-8 features), batch 4+4, float32, 1 step: replicas "
+              f"bit-equal, uniform_rng launches "
+              f"{[o[model]['launches'] for o in out]}; vs world 1's, "
+              f"||d||/||g||: head {head_d:.2e} (bar {DP_GRAD_SHARE}), whole "
+              f"gradient {whole:.2e} (the data axis alone: "
+              f"{floor[model][0]:.2e}); with every halo zeroed: head "
+              f"{head_z:.2e}, whole "
+              f"{zero:.2e} (must miss it); peak GiB per rank {peaks} "
+              f"against world 1's {ref_peak:.2f} (ranks sharing one card: "
+              f"memory per rank, not a scaling figure); spawn and "
+              f"{space}x2 runs {wall:.1f} s | {card}", flush=True)
+        if head_d > DP_GRAD_SHARE or head_z <= DP_GRAD_SHARE:
+            fail(f"({label}) {name} 1 x {space} float32 head gradient vs "
+                 f"world 1: {head_d}; zeroed halos {head_z}, against "
+                 f"{DP_GRAD_SHARE}")
+        launches[f"1x{space}_{model}"] = [o[model]["launches"] for o in out]
+    return launches
+
+
+def live_at_peak(snapshot):
+    """The allocations live when a torch.cuda.memory snapshot's trace
+    peaked: (peak bytes of the traced allocations, [(bytes, frames)] of
+    those live then, largest first). Allocations made before the
+    recording started are not in the trace."""
+    events = [e for trace in snapshot["device_traces"] for e in trace]
+    live, total, peak, peak_at = {}, 0, 0, -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            total += e["size"]
+            if total > peak:
+                peak, peak_at = total, i
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            total -= live.pop(e["addr"])
+    live = {}
+    for e in events[:peak_at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    return peak, sorted(((e["size"], e.get("frames", [])) for e in
+                         live.values()), key=lambda a: -a[0])
+
+
+def where(frames):
+    """The innermost frame in the port and the innermost Python frame of
+    an allocation's stack (whose C++ frames come first)."""
+    def name(f):
+        return f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+    py = [f for f in frames if f["filename"].endswith(".py")]
+    port = [f for f in py if "ust_run_tpu_torch" in f["filename"]]
+    return (name(port[0]) if port else "-", name(py[0]) if py else "-")
+
+
+def memory_snapshots(card, out_path):
+    """--memory FILE: one float32 step at world 1 of the fundus UNet and
+    of DeepLabV2-R101 at full width (3x256^2, batch 4+4) with
+    torch.cuda.memory's history recorded from the step's start; prints
+    and writes to FILE (JSON) the allocations live at each step's peak,
+    largest first, with the port's innermost frame that made each."""
+    import torch
+    from ust_run_tpu_torch.data.synthetic import generate
+    work = os.path.join(HERE, "_smoke_mem")
+    shutil.rmtree(work, ignore_errors=True)
+    report = {"card": card}
+    try:
+        root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
+                        n_test=N_TEST, size=256, seed=0)
+        for label, extra in (("unet_f32", ("--amp", "0")),
+                             ("deeplabv2_r101", ("--model", "deeplabv2",
+                                                 "--pretrained_root", work))):
+            with LogRecords():
+                trainer, _ = make_trainer(train_argv(
+                    "fundus", root, work, label, *extra))
+            trainer.train_steps(1)              # allocator and cuDNN warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.memory._record_memory_history(max_entries=400000)
+            trainer.train_steps(1)
+            torch.cuda.synchronize()
+            snap = torch.cuda.memory._snapshot()
+            torch.cuda.memory._record_memory_history(enabled=None)
+            peak, live = live_at_peak(snap)
+            top, by_site = [], {}
+            for size, frames in live:
+                site = where(frames)
+                by_site[site] = by_site.get(site, 0) + size
+                if len(top) < 25:
+                    top.append((size / 2 ** 20, *site))
+            sites = sorted(by_site.items(), key=lambda a: -a[1])[:15]
+            gib = 2 ** 30
+            print(f"[memory] {label}, 1 step after a warm-up step: peak "
+                  f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB "
+                  f"(allocated before the step {base / gib:.2f}, traced "
+                  f"allocations live at the peak {peak / gib:.2f}, "
+                  f"{len(live)} of them) | {card}", flush=True)
+            for mib, port, inner in top[:12]:
+                print(f"[memory]   {mib:9.1f} MiB  {port}  <- {inner}",
+                      flush=True)
+            for (port, inner), b in sites:
+                print(f"[memory]   by site {b / 2 ** 20:9.1f} MiB  {port}  "
+                      f"<- {inner}", flush=True)
+            report[label] = dict(
+                peak_gib=torch.cuda.max_memory_allocated() / gib,
+                before_gib=base / gib, traced_peak_gib=peak / gib,
+                top_mib=top, sites_mib=[(p, i, b / 2 ** 20)
+                                        for (p, i), b in sites])
+            trainer.close()
+            del trainer, snap
+            free_card()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(report, f, indent=1)
 
 
 def train_entry(argv, env):
@@ -1983,10 +2209,19 @@ def main():
                     "each in a fresh process")
     ap.add_argument("--ab-run", metavar="TREE[@nccl]", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--memory", metavar="FILE", default=None,
+                    help="only record the allocations live at the peak of "
+                    "one float32 UNet and one DeepLabV2-R101 step; JSON to "
+                    "FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA GPU")
+    if args.memory:
+        sys.path.insert(0, HERE)
+        from ust_run_tpu_torch.engine.trainer import set_numerics
+        set_numerics()
+        return memory_snapshots(card_line(), args.memory)
     if args.ab_run:
         return ab_run(card_line(), args.ab_run, args.profile)
     if args.ab:

@@ -111,9 +111,14 @@ def corpus(hp, seed, n=6):
 
 def train_state(hp, seed, epoch, choice_th, model="unet"):
     """The port's train state: two UNets (or, with model "unet2d",
-    Unet2Ds) drawn from `seed`, at `epoch`, with `choice_th`."""
-    make = (lambda: UNet(hp.channels, hp.num_classes)) if model == "unet" \
-        else (lambda: Unet2D(c=hp.channels, num_classes=hp.num_classes))
+    Unet2Ds; "deeplabv2_r50", DeepLabV2s on ResNet-50) drawn from `seed`,
+    at `epoch`, with `choice_th`."""
+    from ust_run_tpu_torch.models import DeepLabV2
+    make = {"unet": lambda: UNet(hp.channels, hp.num_classes),
+            "unet2d": lambda: Unet2D(c=hp.channels,
+                                     num_classes=hp.num_classes),
+            "deeplabv2_r50": lambda: DeepLabV2("resnet50", hp.num_classes,
+                                               hp.channels)}[model]
     nets = [make().init_weights_(torch.Generator().manual_seed(seed + i))
             for i in range(2)]
     st = pstate.create_train_state(hp, seed, "cpu", *nets)
@@ -200,15 +205,17 @@ def state_payload(st):
                 lq=dataclasses.asdict(st.lq), choice_th=st.choice_th)
 
 
-def run_fed_step(mesh, hp, payload, tea_in, inp):
+def run_fed_step(mesh, hp, payload, tea_in, inp, model="unet"):
     """One step from a given state (`state_payload`) and given inputs: the
     teacher's 3-group forward on `tea_in` (its BN fold), the student's
     loss, backward and `apply_update`, the inputs being `build_inputs`'
-    dict from elsewhere. Returns the replicas' largest difference (0
-    without a mesh) and, from rank 0 alone, the loss and its terms, the
-    global gradient by parameter name and the state after the step."""
-    st = pstate.create_train_state(
-        hp, 0, "cpu", *(UNet(hp.channels, hp.num_classes) for _ in range(2)))
+    dict from elsewhere; the models UNets or, with model "unet2d",
+    Unet2Ds. Returns the replicas' largest difference (0 without a mesh)
+    and, from rank 0 alone, the loss and its terms, the global gradient
+    by parameter name and the state after the step."""
+    make = (lambda: UNet(hp.channels, hp.num_classes)) if model == "unet" \
+        else (lambda: zoo_model(model, hp.channels, hp.num_classes))
+    st = pstate.create_train_state(hp, 0, "cpu", make(), make())
     st.student.load_state_dict(payload["student"])
     st.teacher.load_state_dict(payload["teacher"])
     st.step, st.epoch = payload["step"], payload["epoch"]
@@ -417,3 +424,164 @@ def run_train_entry(mesh, argv, env):
     except SystemExit as e:
         return {"step": None, "exit": e.code}
     return {"step": trainer.state.step, "exit": None}
+
+
+# ---------------------------------------------------------------------------
+# planted faults of the space axis (parallel/spatial.py)
+
+
+@contextmanager
+def planted_slab(fault):
+    """A fault of the zoo's slab operations in place in this process for
+    the block, each of which must miss the bars of the tests it is
+    planted in: "aspp_zero" (DeepLab's shared 24-row ASPP halo zeroed,
+    as if every slab were the image), "local_resize" (the x8 resize by
+    F.interpolate(align_corners=True) on the slab, i.e. on the slab's
+    corners), "upsample_zeros" (zeros past the image's edges in
+    upsample2x's halo instead of the edge row), "pool_zeros" (zeros
+    instead of -inf in the max pool's), "zero_halo" (every halo zeroed),
+    or None; and "smooth", no fault: every F.relu a tanh, so that no kink
+    can flip (a model built inside the block keeps it)."""
+    import torch.nn.functional as F
+    from ust_run_tpu_torch.parallel import spatial
+    saved = [(spatial, "halo_rows", spatial.halo_rows),
+             (spatial, "resize_align_corners",
+              spatial.resize_align_corners), (F, "relu", F.relu)]
+    halo = spatial.halo_rows
+
+    def zeroed(x, mesh, top=1, bottom=1, fill="zeros", bounds=None):
+        return F.pad(x, (0, 0, top, bottom))
+
+    def refilled(old, new):
+        def fn(x, mesh, top=1, bottom=1, fill="zeros", bounds=None):
+            return halo(x, mesh, top, bottom, new if fill == old else fill,
+                        bounds)
+        return fn
+
+    if fault == "aspp_zero":
+        spatial.halo_rows = lambda x, mesh, top=1, bottom=1, fill="zeros", \
+            bounds=None: (zeroed if top == 24 else halo)(x, mesh, top,
+                                                         bottom, fill, bounds)
+    elif fault == "local_resize":
+        spatial.resize_align_corners = lambda x, h2, w2, mesh, sizes: \
+            F.interpolate(x, size=(h2, w2), mode="bilinear",
+                          align_corners=True)
+    elif fault == "upsample_zeros":
+        spatial.halo_rows = refilled("edge", "zeros")
+    elif fault == "pool_zeros":
+        spatial.halo_rows = refilled("neg_inf", "zeros")
+    elif fault == "zero_halo":
+        spatial.halo_rows = zeroed
+    elif fault == "smooth":
+        F.relu = torch.tanh
+    try:
+        yield
+    finally:
+        for obj, name, v in saved:
+            setattr(obj, name, v)
+
+
+def gather_layer(mesh, local, sizes):
+    """A model's NCHW activations at any layer, this rank's (samples x
+    rows) share of the groups `sizes` (mesh.shard's GroupSizes) -> every
+    sample's whole layer on every rank: a sum all-reduce of a zero
+    buffer holding each rank's share at its place (rows by
+    spatial.layout)."""
+    import torch.distributed as dist
+    from ust_run_tpu_torch.parallel import spatial
+    from ust_run_tpu_torch.parallel.mesh import shard_slice
+    n, c, h, w = local.shape
+    a, b = spatial.layout(mesh, sizes, w, h)[mesh.space_index]
+    height = spatial.layout(mesh, sizes, w)[-1][1]
+    out = local.new_zeros((sum(sizes.total), c, height, w))
+    start = pos = 0
+    for total in sizes.total:
+        sl = shard_slice(total, mesh.data_index, mesh.data)
+        k = sl.stop - sl.start
+        out[start + sl.start:start + sl.stop, :, a:b] = local[pos:pos + k]
+        start, pos = start + total, pos + k
+    dist.all_reduce(out, group=mesh.group)
+    return out
+
+
+def shard_layer(mesh, full, sizes):
+    """The inverse of `gather_layer`: this rank's (samples x rows) share
+    of a whole layer `full` (NCHW)."""
+    from ust_run_tpu_torch.parallel import spatial
+    from ust_run_tpu_torch.parallel.mesh import shard_slice
+    a, b = spatial.layout(mesh, sizes, full.shape[3])[mesh.space_index]
+    parts, start = [], 0
+    for total in sizes.total:
+        sl = shard_slice(total, mesh.data_index, mesh.data)
+        parts.append(full[start + sl.start:start + sl.stop, :, a:b])
+        start += total
+    return torch.cat(parts)
+
+
+def zoo_model(kind, channels=3, classes=2):
+    """A zoo model of the space-axis tests: "resnet" (ResNet at depth
+    (1, 1, 1, 1): one block a stage keeps every stride and dilation),
+    "r50" (DeepLabV2 on ResNet-50) or "unet2d"."""
+    from ust_run_tpu_torch.models import DeepLabV2, ResNet
+    if kind == "resnet":
+        return ResNet((1, 1, 1, 1), channels)
+    if kind == "r50":
+        return DeepLabV2("resnet50", classes, channels)
+    return Unet2D(c=channels, num_classes=classes)
+
+
+def run_zoo_model(mesh, kind, sd, x, r, groups, fault=None):
+    """A zoo model (`zoo_model`) with state_dict `sd` in train mode on
+    this rank's share of NHWC `x` in `groups` BN groups (without a mesh,
+    on all of it), the loss sum(y * r) backward, with `fault` of
+    `planted_slab` in place. y is the logits (NHWC) or, for the ResNet,
+    c4 (NCHW, `r` shaped alike). Returns y gathered, the gradients
+    summed over the ranks, the running statistics and the replicas'
+    largest difference."""
+    from ust_run_tpu_torch.parallel import bind_mesh
+    sizes = (x.shape[0] // groups,) * groups
+    kw = dict(groups=groups)
+    if mesh is not None:
+        x, kw["group_sizes"] = mesh.shard(x, sizes)
+        r = shard_layer(mesh, r, kw["group_sizes"]) if kind == "resnet" \
+            else mesh.shard(r, sizes)[0]
+    with planted_slab(fault):
+        net = zoo_model(kind, x.shape[-1])
+        net.load_state_dict(sd)
+        net.train()
+        if mesh is not None:
+            bind_mesh(net, mesh)
+        y = net(x.permute(0, 3, 1, 2), **kw)[-1] if kind == "resnet" \
+            else net(x, **kw)
+        (y * r).sum().backward()
+    y = y.detach()
+    out = dict(replica_diff=0.0)
+    if mesh is not None:
+        mesh.all_reduce_grads(net.parameters())
+        y = gather_layer(mesh, y, kw["group_sizes"]) if kind == "resnet" \
+            else mesh.gather(y, sizes, kw["group_sizes"].height)
+        state = list(net.state_dict().values()) \
+            + [p.grad for p in net.parameters()]
+        out["replica_diff"] = mesh.max_replica_difference(state)
+    out.update(y=y, grads={n: p.grad for n, p in net.named_parameters()},
+               state={k: v for k, v in net.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))})
+    return out
+
+
+def run_zoo_models(mesh, runs):
+    """run_zoo_model for each (kind, sd, x, r, groups, fault) of `runs` in
+    one spawn of the ranks; rank 0 returns the results, the others their
+    replica differences."""
+    res = []
+    for run in runs:
+        out = run_zoo_model(mesh, *run)
+        res.append(out if mesh.rank == 0 else
+                   {"replica_diff": out["replica_diff"]})
+    return res
+
+
+def run_steps_smooth(mesh, *args):
+    """run_steps with every F.relu a tanh (planted_slab's "smooth")."""
+    with planted_slab("smooth"):
+        return run_steps(mesh, *args)

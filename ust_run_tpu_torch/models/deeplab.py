@@ -14,6 +14,13 @@ UNet's contract: NHWC float32 in, NHWC float32 logits out, channels_last
 inside, `groups`/`group_sizes`/`group_valid` forwarded to every
 GroupedBatchNorm. It computes in float32 (the JAX package gives the zoo
 no compute dtype).
+
+On a mesh with a space axis (a call on a row slab, the backbone's too)
+the four ASPP convolutions read one shared halo of the stride-8 features,
+as wide as the largest dilation (24 rows: over 2 ranks at 256 px a slab
+holds 16, so the halo reaches the next slab but one), and their sum is
+resized on the image's global sampling grid
+(spatial.resize_align_corners). `tta` runs on whole images only.
 """
 
 import torch
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ust_run_tpu_torch.models import resnet as resnet_lib
+from ust_run_tpu_torch.parallel import spatial
 
 _DILATIONS = (6, 12, 18, 24)
 
@@ -34,7 +42,7 @@ def resize_align_corners(x, h2, w2):
                          align_corners=True)
 
 
-class DeepLabV2(nn.Module):
+class DeepLabV2(spatial.SlabAware):
     def __init__(self, backbone="resnet101", nclass=2, in_channels=3):
         super().__init__()
         self.nclass = nclass
@@ -59,16 +67,23 @@ class DeepLabV2(nn.Module):
         """NCHW f32 -> NCHW f32 logits at the input size."""
         h, w = x.shape[2:]
         c4 = self.backbone(x, **gkw)[-1]
-        out = self.classifier[0](c4)
-        for conv in self.classifier[1:]:
-            out = out + conv(c4)
-        return resize_align_corners(out, h, w)          # deeplabv2.py:30
+        sizes = gkw.get("group_sizes")
+        mesh = spatial.slab_mesh(self, sizes)
+        if mesh is None:
+            out = self.classifier[0](c4)
+            for conv in self.classifier[1:]:
+                out = out + conv(c4)
+            return resize_align_corners(out, h, w)      # deeplabv2.py:30
+        out = spatial.conv_sum(self.classifier, c4, mesh, sizes)
+        return spatial.resize_align_corners(out, h, w, mesh, sizes)
 
     def forward(self, x, groups=1, group_sizes=None, group_valid=None,
                 tta=False):
         """x: (B, H, W, C) NHWC -> f32 logits (B, H, W, nclass), or with
         `tta` the summed probabilities of the ten views."""
         x = x.float().permute(0, 3, 1, 2)     # NCHW view, channels_last
+        assert not (tta and spatial.slab_mesh(self, group_sizes)), \
+            "tta runs on whole images"
         if not tta:
             out = self.base_forward(x, groups=groups, group_sizes=group_sizes,
                                     group_valid=group_valid)

@@ -14,6 +14,13 @@ ust_run_tpu/utils/torch_import.py:95-121 reads the port's state_dict.
 Inside the models tensors are NCHW-shaped (channels_last in memory on the
 card): `ResNet.forward` takes that layout and returns the four stage
 outputs c1..c4 in it.
+
+On a mesh with a space axis each rank runs a slab of whole rows of every
+image (blocks of 16 at the input, so 8 at the stem's output and 2 at the
+stride-8 stages): the stem, the max pool and every block's 3x3
+convolution (strided or dilated) run through parallel/spatial.py with
+halo rows as wide as their windows; the 1x1 convolutions, the strided
+projection included, need none, since every slab starts on an even row.
 """
 
 import math
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ust_run_tpu_torch.models.layers import GroupedBatchNorm
+from ust_run_tpu_torch.parallel import spatial
 
 
 def kaiming_normal_out_(weight, generator):
@@ -40,10 +48,10 @@ def _conv(cin, cout, k, stride=1, dilation=1):
                      bias=False)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(spatial.SlabAware):
     """1x1 -> 3x3 (stride, dilation) -> 1x1 x4, each followed by BN, with
     a 1x1 strided projection on the identity when `downsample`
-    (resnet.py:30-54)."""
+    (resnet.py:30-54). On a row slab the 3x3 takes its halo rows."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
@@ -61,8 +69,11 @@ class Bottleneck(nn.Module):
             if downsample else None
 
     def forward(self, x, **gkw):
+        sizes = gkw.get("group_sizes")
+        mesh = spatial.slab_mesh(self, sizes)
         out = F.relu(self.bn1(self.conv1(x), **gkw))
-        out = F.relu(self.bn2(self.conv2(out), **gkw))
+        out = spatial.conv(self.conv2, out, mesh, sizes)
+        out = F.relu(self.bn2(out, **gkw))
         out = self.bn3(self.conv3(out), **gkw)
         identity = x
         if self.downsample is not None:
@@ -70,7 +81,7 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(spatial.SlabAware):
     """resnet.py:57-88: a 7x7 stride-2 stem, 3x3 stride-2 max pool, four
     stages of Bottlenecks (64/128/256/512 planes). Stages 3 and 4 trade
     their stride for dilation. The first block of every stage projects
@@ -112,8 +123,10 @@ class ResNet(nn.Module):
         """x: NCHW -> [c1, c2, c3, c4] (resnet.py:173-183)."""
         gkw = dict(groups=groups, group_sizes=group_sizes,
                    group_valid=group_valid)
-        x = F.relu(self.bn1(self.conv1(x), **gkw))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        mesh = spatial.slab_mesh(self, group_sizes)
+        x = spatial.conv(self.conv1, x, mesh, group_sizes)
+        x = F.relu(self.bn1(x, **gkw))
+        x = spatial.max_pool2d(x, 3, 2, 1, mesh, group_sizes)
         feats = []
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:

@@ -31,15 +31,13 @@ from ust_run_tpu_torch.models.layers import (GroupedBatchNorm,
 from ust_run_tpu_torch.parallel import spatial
 
 
-class DoubleConv(nn.Module):
+class DoubleConv(spatial.SlabAware):
     """(conv3x3 -> BN -> ReLU) x2 (reference unet_parts.py:8-25).
 
     With `mesh` bound (parallel.bind_mesh) and a call on a row slab (its
     GroupSizes carry the image's height), each 3x3 convolution takes its
     halo rows from the neighbouring slabs (parallel/spatial.py) with the
     module's own weight."""
-
-    mesh = None
 
     def __init__(self, in_ch, out_ch):
         super().__init__()
@@ -53,14 +51,12 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x, **gkw):
-        slab = getattr(gkw.get("group_sizes"), "height", None) is not None
-        assert not slab or self.mesh is not None, \
-            "a row slab needs the mesh bound (parallel.bind_mesh)"
+        mesh = spatial.slab_mesh(self, gkw.get("group_sizes"))
         for layer in self.double_conv:
             if isinstance(layer, GroupedBatchNorm):
                 x = layer(x, **gkw)
-            elif slab and isinstance(layer, nn.Conv2d):
-                x = spatial.conv3x3(x, layer.weight, self.mesh)
+            elif mesh is not None and isinstance(layer, nn.Conv2d):
+                x = spatial.conv3x3(x, layer.weight, mesh)
             else:
                 x = layer(x)
         return x

@@ -18,6 +18,13 @@ layer holds `bns.{d}.*`. The Discriminator's convolutions are `c0`..`c4`,
 the JAX package's names. Public forwards take and return NHWC float32;
 inside, tensors are NCHW-shaped. `Unet2D` keeps the UNet's call contract
 (`groups`, `group_sizes`, `group_valid` reach every GroupedBatchNorm).
+
+`Unet2D` with norm='bn' runs on a mesh with a space axis: each rank holds
+a slab of whole rows of every image (blocks of 16, the total
+downsampling, so one row a block at the bottom level); ConvD's and ConvU's
+3x3 convolutions, ConvU's bilinear upsampling and `seg1` run through
+parallel/spatial.py with halo rows, the 2x2 pools and 1x1 convolutions
+need none.
 """
 
 import torch
@@ -27,6 +34,7 @@ from torch import nn
 from ust_run_tpu_torch.models.dsbn import DomainSpecificBatchNorm2d
 from ust_run_tpu_torch.models.layers import GroupedBatchNorm, torch_bias_init_
 from ust_run_tpu_torch.models.resnet import kaiming_normal_out_
+from ust_run_tpu_torch.parallel import spatial
 
 
 def _conv(cin, cout, k, stride=1, padding=None):
@@ -63,12 +71,6 @@ def _act(name):
     return lambda x: F.leaky_relu(x, 0.01)
 
 
-def upsample2x(x):
-    """nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear",
-                         align_corners=False)
-
-
 def _nchw(x):
     return x.float().permute(0, 3, 1, 2)
 
@@ -90,9 +92,10 @@ class _Zoo(nn.Module):
         return self
 
 
-class ConvD(nn.Module):
+class ConvD(spatial.SlabAware):
     """Down block (unet.py:32-73): [maxpool] -> conv-norm -> conv-norm-act
-    -> conv-norm-act. The first conv's output skips the activation."""
+    -> conv-norm-act. The first conv's output skips the activation. On a
+    row slab the 3x3 convolutions take halo rows."""
 
     def __init__(self, inplanes, planes, norm="bn", first=False,
                  activation="relu", num_domains=None):
@@ -107,16 +110,23 @@ class ConvD(nn.Module):
         self.bn3 = normalization(planes, norm, num_domains)
 
     def forward(self, x, domain_label=None, **gkw):
+        sizes = gkw.get("group_sizes")
+        mesh = spatial.slab_mesh(self, sizes)
         if not self.first:
             x = F.max_pool2d(x, 2)
-        x = _norm(self.bn1, self.conv1(x), domain_label, gkw)
-        y = self.act(_norm(self.bn2, self.conv2(x), domain_label, gkw))
-        return self.act(_norm(self.bn3, self.conv3(y), domain_label, gkw))
+
+        def conv(mod, t):
+            return spatial.conv(mod, t, mesh, sizes)
+        x = _norm(self.bn1, conv(self.conv1, x), domain_label, gkw)
+        y = self.act(_norm(self.bn2, conv(self.conv2, x), domain_label, gkw))
+        return self.act(_norm(self.bn3, conv(self.conv3, y), domain_label,
+                              gkw))
 
 
-class ConvU(nn.Module):
+class ConvU(spatial.SlabAware):
     """Up block (unet.py:75-118): [conv-norm-act] -> upsample x2 -> 1x1
-    conv-norm-act -> concat [prev, y] -> conv-norm-act."""
+    conv-norm-act -> concat [prev, y] -> conv-norm-act. On a row slab the
+    3x3 convolutions and the upsampling take halo rows."""
 
     def __init__(self, planes, norm="bn", first=False, activation="relu",
                  num_domains=None):
@@ -132,12 +142,18 @@ class ConvU(nn.Module):
         self.bn3 = normalization(planes, norm, num_domains)
 
     def forward(self, x, prev, domain_label=None, **gkw):
+        sizes = gkw.get("group_sizes")
+        mesh = spatial.slab_mesh(self, sizes)
         if not self.first:
-            x = self.act(_norm(self.bn1, self.conv1(x), domain_label, gkw))
-        y = upsample2x(x)
+            x = self.act(_norm(self.bn1, spatial.conv(self.conv1, x, mesh,
+                                                      sizes),
+                               domain_label, gkw))
+        y = spatial.upsample2x(x, mesh, sizes)
         y = self.act(_norm(self.bn2, self.conv2(y), domain_label, gkw))
         y = torch.cat([prev, y], dim=1)
-        return self.act(_norm(self.bn3, self.conv3(y), domain_label, gkw))
+        return self.act(_norm(self.bn3, spatial.conv(self.conv3, y, mesh,
+                                                     sizes),
+                              domain_label, gkw))
 
 
 class ConvURec(nn.Module):
@@ -158,7 +174,7 @@ class ConvURec(nn.Module):
 
     def forward(self, x, domain_label=None, **gkw):
         x = self.act(_norm(self.bn1, self.conv1(x), domain_label, gkw))
-        y = upsample2x(x)
+        y = spatial.upsample2x(x)
         y = self.act(_norm(self.bn2, self.conv2(y), domain_label, gkw))
         return self.act(_norm(self.bn3, self.conv3(y), domain_label, gkw))
 
@@ -198,7 +214,7 @@ class _Unet2DBase(_Zoo):
         return self.convu1(y2, x1, **kw), y2, y3, y4
 
 
-class Unet2D(_Unet2DBase):
+class Unet2D(_Unet2DBase, spatial.SlabAware):
     """unet.py:168-203."""
 
     def __init__(self, c=3, n=16, norm="bn", num_classes=2,
@@ -212,7 +228,9 @@ class Unet2D(_Unet2DBase):
         kw = dict(domain_label=domain_label, groups=groups,
                   group_sizes=group_sizes, group_valid=group_valid)
         y1 = self._decode(self._encode(_nchw(x), **kw), **kw)[0]
-        return _nhwc(self.seg1(y1))
+        return _nhwc(spatial.conv(self.seg1, y1,
+                                  spatial.slab_mesh(self, group_sizes),
+                                  group_sizes))
 
 
 class Unet2D_MT(_Unet2DBase):

@@ -18,14 +18,18 @@ with the same global batch, within float summation order.
   * Sharded: each rank takes a contiguous slice of every group of a model
     call over the data axis (`shard`; a slice may be empty) and, with a
     space axis, a contiguous run of image rows over it: whole blocks of
-    ROW_BLOCK = 16 rows (the UNet's total downsampling, 2^4), so that
-    every level of the UNet holds whole rows on every rank and its pools,
-    transpose convs and concatenations stay local. Each rank computes the
-    loss terms of its (samples x rows) share.
+    ROW_BLOCK = 16 rows (the UNet's and Unet2D's total downsampling, 2^4;
+    DeepLab's is 8), so that every level of every model holds whole rows
+    on every rank, every slab starts on an even row at every stride-2
+    layer, and pools of 2x2, transpose convs, 1x1 convolutions (strided
+    ones too) and concatenations stay local. Each rank computes the loss
+    terms of its (samples x rows) share.
   * Collectives, the only ones: GroupedBatchNorm's per-group moment sums
     (forward and backward; `shard` hands it the global group sizes and
-    image height as `GroupSizes`), the 3x3 convolutions' halo rows over
-    the space group (parallel/spatial.py), the loss terms' partial sums,
+    image height as `GroupSizes`), the halo rows of every operation whose
+    window spans rows (parallel/spatial.py: convolutions of kernel > 1 at
+    any stride and dilation, DeepLab's stem pool, bilinear resizes) over
+    the space group, the loss terms' partial sums,
     the two logit gathers and the gradient all-reduce. Each is an
     `all_reduce` (sum or max) or a `broadcast`, the two collectives Gloo
     offers for CUDA tensors, so one code path runs under NCCL, under Gloo
@@ -52,7 +56,9 @@ not used.
 Differences from GSPMD, deliberate: an image whose height is not a
 multiple of ROW_BLOCK, or has fewer blocks than the space axis has ranks
 (patch 32 over space 4), raises a ValueError where GSPMD pads; and only
-the UNet runs on a space axis (`bind_mesh` raises for the zoo).
+the models whose every operation has a slab version run on a space axis
+(`bind_mesh`: the UNet, Unet2D with BatchNorm, DeepLabV2 and its ResNet;
+it raises for the rest).
 """
 
 import dataclasses
@@ -171,10 +177,13 @@ class Mesh:
         return self.rank % self.space
 
     # ------ layout ---------------------------------------------------
-    def row_slice(self, height):
-        """This rank's rows of an image `height` rows high: whole blocks
-        of ROW_BLOCK rows, cut over the space axis as `shard_slice` cuts
+    def row_slice(self, height, space_index=None):
+        """This rank's rows of an image `height` rows high (or those of
+        the rank at `space_index` of its space group): whole blocks of
+        ROW_BLOCK rows, cut over the space axis as `shard_slice` cuts
         samples (288 rows over 4 ranks: 5, 5, 4, 4 blocks)."""
+        if space_index is None:
+            space_index = self.space_index
         if self.space == 1:
             return slice(0, height)
         blocks, rest = divmod(height, ROW_BLOCK)
@@ -183,7 +192,7 @@ class Mesh:
                 f"a space axis of {self.space} ranks needs an image height "
                 f"that is a multiple of {ROW_BLOCK} rows with at least one "
                 f"block of {ROW_BLOCK} per rank; got {height} rows")
-        sl = shard_slice(blocks, self.space_index, self.space)
+        sl = shard_slice(blocks, space_index, self.space)
         return slice(sl.start * ROW_BLOCK, sl.stop * ROW_BLOCK)
 
     def shard(self, x, sizes):
@@ -294,19 +303,31 @@ DataMesh = Mesh     # the name of the data-only mesh before the space axis
 
 def bind_mesh(model, mesh):
     """Bind `mesh` to every GroupedBatchNorm of `model` (in train mode its
-    statistics become those of the global batch) and, on a space axis, to
-    the UNet's DoubleConvs (their 3x3 convolutions take halo rows). Only
-    the UNet runs on a space axis: a dilated convolution needs a halo as
-    wide as its dilation (DeepLab's ASPP reaches 24)."""
-    from ust_run_tpu_torch.models.layers import GroupedBatchNorm
-    from ust_run_tpu_torch.models.unet import DoubleConv, UNet
-    if mesh.space > 1 and not isinstance(model, (UNet, GroupedBatchNorm)):
-        raise ValueError(
-            f"the space axis shards only the UNet; {type(model).__name__} "
-            f"cannot run on a mesh with {mesh.space} space ranks (its "
-            f"convolutions take no halo rows)")
+    statistics become those of the global batch) and to every slab-aware
+    module (parallel.spatial.SlabAware: on a row slab their convolutions,
+    pools and resizes of kernel > 1 take halo rows). On a space axis only
+    the UNet, Unet2D with BatchNorm and DeepLabV2 (or its ResNet) run:
+    any other model raises, naming it, since a layer without a slab
+    version would zero-pad every slab's edges, or normalise a sample over
+    its slab alone (GroupNorm, InstanceNorm, DSBN)."""
+    from torch import nn
+    from ust_run_tpu_torch.models import (DeepLabV2,
+                                          DomainSpecificBatchNorm2d,
+                                          GroupedBatchNorm, ResNet, UNet,
+                                          Unet2D)
+    from ust_run_tpu_torch.parallel.spatial import SlabAware
+    if mesh.space > 1:
+        per_sample = (nn.GroupNorm, nn.InstanceNorm2d,
+                      DomainSpecificBatchNorm2d)
+        if not isinstance(model, (UNet, Unet2D, DeepLabV2, ResNet,
+                                  GroupedBatchNorm)) \
+                or any(isinstance(m, per_sample) for m in model.modules()):
+            raise ValueError(
+                f"the space axis shards the UNet, Unet2D with BatchNorm and "
+                f"DeepLabV2; {type(model).__name__} cannot run on a mesh "
+                f"with {mesh.space} space ranks")
     for mod in model.modules():
-        if isinstance(mod, (GroupedBatchNorm, DoubleConv)):
+        if isinstance(mod, (GroupedBatchNorm, SlabAware)):
             mod.mesh = mesh
     return model
 
