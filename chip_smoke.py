@@ -14,7 +14,7 @@ Phases, one line each (or a few); any failure exits non-zero:
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar (its timing is phase 16);
+       ragged one, and the statistical bar (its timing is phase 17);
      - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
        (ragged image edges, a partial last K chunk with C > 64, a partial
        N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
@@ -124,7 +124,17 @@ Phases, one line each (or a few); any failure exits non-zero:
      (2 x 1), which these models' ReLUs keep above the bar. Its img/s
      and peak GiB are several processes sharing one card, not a scaling
      figure;
- 16. RNG timing: the uniform-field RNG's and torch.rand's device time
+ 16. bench, each run in a fresh process: `python -m
+     ust_run_tpu_torch.bench` at its defaults (fundus UNet, 3 x 10 warm-up
+     and 8 x 10 timed steps) and with UST_BENCH_MODEL=deeplabv2_r50
+     UST_BENCH_UNROLL=2: one stdout line, bench.py's JSON with the metric's
+     name and a finite rate above 0, and on stderr uniform_rng launched once
+     per step run and a finite last loss; `python -m
+     ust_run_tpu_torch.perf_breakdown --n 5` (fundus): the JAX tool's nine
+     keys, each finite; then, in this process, one bench step after a
+     warm-up step under the sync debug mode, its index copy and lagged
+     fetch included;
+ 17. RNG timing: the uniform-field RNG's and torch.rand's device time
      per kernel (torch.profiler) apart from the host's cost per call
      (host clock). Last, so that no phase timed before it runs in a
      process that torch.profiler has traced.
@@ -2017,6 +2027,95 @@ def phase_instruments(card, work):
     return launches
 
 
+BENCH_RUNS = [({}, "ssl_train_images_per_sec_per_chip", 10),
+              ({"UST_BENCH_MODEL": "deeplabv2_r50", "UST_BENCH_UNROLL": "2"},
+               "ssl_train_images_per_sec_per_chip_deeplabv2_r50", 2)]
+PERF_BREAKDOWN_KEYS = [
+    "weak_aug_8img", "strong_aug_4img", "fda_4img", "cutmix_boxes",
+    "teacher_fwd_12img", "student_grad_21img", "optimizer_ema", "full_step",
+    "stage_sum"]                              # tools/perf_breakdown.py's
+
+
+def run_module(module, args=(), env=None):
+    """`python -m module args` in a fresh process on the card with `env`
+    added; fails unless it exits 0. Returns (stdout, stderr)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", module, *args], cwd=HERE, capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": HERE, **(env or {})})
+    if proc.returncode != 0:
+        fail(f"python -m {module} {' '.join(args)} {env or ''}: rc "
+             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr
+
+
+def bench_run(env, metric, unroll):
+    """One `python -m ust_run_tpu_torch.bench` with `env`: (its JSON line,
+    its stderr report), both checked."""
+    out, err = run_module("ust_run_tpu_torch.bench", env=env)
+    lines = out.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"bench {env}: {len(lines)} stdout lines, not one:\n{out}")
+    res = json.loads(lines[0])
+    report = [ln for ln in err.splitlines() if ln.startswith("[bench] {")]
+    if not report:
+        fail(f"bench {env}: no report on stderr\n{err[-2000:]}")
+    info = json.loads(report[-1][len("[bench] "):])
+    value = res.get("value")
+    if res.get("metric") != metric or not isinstance(value, float) \
+            or not math.isfinite(value) or value <= 0:
+        fail(f"bench {env}: {lines[0]}")
+    steps = (3 + 8) * unroll
+    if (info["steps_run"], info["steps_timed"],
+            info["uniform_rng_launches"]) != (steps, 8 * unroll, steps) \
+            or not math.isfinite(info["last_loss"]):
+        fail(f"bench {env}: {report[-1]}")
+    return res, info
+
+
+def phase_bench(card):
+    """The benchmark entries in fresh processes, then one bench step under
+    the sync debug mode. Returns uniform_rng's launches in the default
+    bench run."""
+    import torch
+    from ust_run_tpu_torch import bench
+    infos = []
+    for env, metric, unroll in BENCH_RUNS:
+        t0 = time.perf_counter()
+        res, info = bench_run(env, metric, unroll)
+        infos.append(info)
+        print(f"[bench] {json.dumps(res)}\n[bench] {json.dumps(info)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out, _ = run_module("ust_run_tpu_torch.perf_breakdown", ["--n", "5"])
+    stages = json.loads(out)
+    if list(stages) != PERF_BREAKDOWN_KEYS or not all(
+            isinstance(v, float) and math.isfinite(v) for v in
+            stages.values()):
+        fail(f"perf_breakdown: {out}")
+    print(f"[bench] perf_breakdown --n 5 (ms): {json.dumps(stages)}; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+    cfg, _ = bench.bench_config({})
+    cfg.unroll_steps = 1
+    b = bench.Bench(cfg, "cuda")
+    b.calls(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        last = b.calls(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not math.isfinite(float(last[0])):
+        fail(f"bench step under the sync debug mode: loss {last[0]}")
+    del b
+    print("[bench] one bench step (index copy, step, lagged fetch) under "
+          "torch.cuda.set_sync_debug_mode('error'): no host-device sync | "
+          f"{card}", flush=True)
+    return infos[0]["uniform_rng_launches"]
+
+
 def steps_one_by_one(trainer, n):
     """`n` steps, each timed on its own (host clock to a synchronise; the
     first includes warm-up). Returns (ms per step, metrics, peak GiB)."""
@@ -2292,6 +2391,8 @@ def main():
                                  gloo_img_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    free_card()
+    bench_launches = timed("bench", phase_bench, card)
     timed("rng timing", phase_rng_timing, card, kernels[0])
     print(f"[time] all: {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
@@ -2301,6 +2402,7 @@ def main():
             k["data_parallel_launches"] = dp_launches
             k["instruments_launches"] = instruments_launches
             k["spatial_launches"] = spatial_launches
+            k["bench_launches"] = bench_launches
             k["bit_equal_at"] = ["(16,256,256)", "(3,37,37)",
                                  "(16,384,384)", "(16,288,288)"]
         else:

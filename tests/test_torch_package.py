@@ -47,12 +47,13 @@ print(" ".join(mods))
         "ops.fused_conv", "utils.boundary", "utils.boundary_native",
         "engine.evaluator", "engine.checkpoint", "test", "nan_replay",
         "parity_runs", "data.dl_utils", "data.transform", "data.ssda",
-        "data.extra_transforms", "parallel.spatial")} <= mods
+        "data.extra_transforms", "parallel.spatial", "bench",
+        "perf_breakdown")} <= mods
 
 
 def test_no_cpu_fallback(tmp_path, monkeypatch):
     """Without CUDA, every entry raises unless the CPU is asked for."""
-    from ust_run_tpu_torch import nan_replay
+    from ust_run_tpu_torch import bench, nan_replay, perf_breakdown
     from ust_run_tpu_torch import test as test_entry
     from ust_run_tpu_torch import train
     from ust_run_tpu_torch.ops import fused_conv, rng
@@ -73,6 +74,12 @@ def test_no_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         nan_replay.main(["--dump", str(tmp_path), "--", "--dataset",
                          "fundus", "--data_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        perf_breakdown.main([])
+    # (bench.main also starts its watchdog; its subprocess test is in
+    # tests/test_torch_bench.py)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.Bench(bench.bench_config({})[0])
     assert not os.listdir(tmp_path)          # raised before touching files
     assert rng.uniform_batch(2, 8, generator=g, device="cpu").shape \
         == (2, 8, 8)

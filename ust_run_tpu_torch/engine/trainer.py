@@ -73,8 +73,10 @@ def set_numerics():
     torch.backends.cudnn.allow_tf32 = False
 
 
-class _Pending:
-    """One step's packed metrics on their way to the host."""
+class Pending:
+    """One step's packed metrics on their way to the host: a CUDA tensor
+    is copied to pinned memory without blocking, and `fetch` waits on an
+    event recorded after the copy (not a synchronising call)."""
 
     def __init__(self, it, metrics, ulb_idx):
         self.it = it
@@ -92,6 +94,18 @@ class _Pending:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+def indices_to_device(idx, device):
+    """{name: host index array} -> {name: int64 tensor on `device`}; to a
+    CUDA device through pinned memory without blocking."""
+    dev = {}
+    for k, v in idx.items():
+        t = torch.from_numpy(np.asarray(v, np.int64))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        dev[k] = t
+    return dev
 
 
 class Trainer:
@@ -231,13 +245,7 @@ class Trainer:
     def _next_batch(self):
         idx = {"lb_idx": self.lb_pipe.next_indices(),
                "ulb_idx": self.ulb_pipe.next_indices()}
-        dev = {}
-        for k, v in idx.items():
-            t = torch.from_numpy(np.asarray(v, np.int64))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            dev[k] = t
-        return idx, dev
+        return idx, indices_to_device(idx, self.device)
 
     def new_epoch(self, epoch_num):
         n_part = self.profile_.n_part
@@ -271,7 +279,7 @@ class Trainer:
                               self.mesh)
             self.iter_num += 1
             out += self._flush()
-            self._pending = _Pending(self.iter_num, metrics, idx["ulb_idx"])
+            self._pending = Pending(self.iter_num, metrics, idx["ulb_idx"])
             if self._bar is not None:
                 self._bar.update(1)
         return out + self._flush()
