@@ -14,7 +14,9 @@ Phases, one line each (or a few); any failure exits non-zero:
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
      - the uniform-field RNG bit-equal at the main path's shape and at a
-       ragged one, and the statistical bar (its timing is phase 17);
+       ragged one, and the statistical bar (keys with the high words set
+       and keys rewritten between graph replays in phase 17, its time in
+       phase 18);
      - bn_relu_conv3x3 at the JAX test shapes and at three edge shapes
        (ragged image edges, a partial last K chunk with C > 64, a partial
        N tile of 128 channels; C = 3, Co = 70) in f32 and bf16 (both of
@@ -37,17 +39,22 @@ Phases, one line each (or a few); any failure exits non-zero:
      against the same module on the CPU (float32, TF32 off) at a small
      input;
   5. main path: the port's trainer on a synthetic fundus corpus at full
-     width (UNet 64->1024, 3x256^2, batch 4+4): 3 warm-up and 10 timed
-     steps, every loss finite, the RNG kernel launched once per step, and
+     width (UNet 64->1024, 3x256^2, batch 4+4) at its default
+     --unroll_steps 10: a warm-up call of 3 steps (the first runs eagerly,
+     then the step is captured as a CUDA graph and replayed) and 10 timed
+     steps (replays), every loss finite, the RNG kernel run once per
+     step (launches outside graphs plus the captured one per replay), and
      no call in the timed steps that makes the host wait on the card
      (`torch.cuda.set_sync_debug_mode("error")`) other than the trainer's
-     one-step-behind metric fetch;
+     one-call-behind metric fetch;
   6. profile (only with --profile FILE): 5 more steps of the same trainer
      under torch.profiler: wall and device-kernel ms per step, the
      device's busy share, kernel launches per step, the host's time
      blocked in synchronising CUDA calls, the top operators by device
-     time and the convolutions' FLOPs; written to FILE as JSON (and the
-     same for the zoo path of phase 10, to FILE's stem + `_zoo.json`);
+     time and the convolutions' FLOPs; written to FILE as JSON; the same
+     for a trainer at --unroll_steps 1 (eager steps) to FILE's stem +
+     `_eager.json`, and for the zoo path of phase 10 to FILE's stem +
+     `_zoo.json`;
   7. evaluation, on the same trainer: after one untimed warm-up pass, the
      EMA and student models timed over the synthetic fundus test split
      (32 images) at full width, every per-domain dice in [0, 1] and dc,
@@ -129,15 +136,35 @@ Phases, one line each (or a few); any failure exits non-zero:
      and 8 x 10 timed steps) and with UST_BENCH_MODEL=deeplabv2_r50
      UST_BENCH_UNROLL=2: one stdout line, bench.py's JSON with the metric's
      name and a finite rate above 0, and on stderr uniform_rng launched once
-     per step run and a finite last loss; `python -m
+     per step run (one capture and a replay per other step at unroll
+     above 1) and a finite last loss; `python -m
      ust_run_tpu_torch.perf_breakdown --n 5` (fundus): the JAX tool's nine
      keys, each finite; then, in this process, one bench step after a
      warm-up step under the sync debug mode, its index copy and lagged
      fetch included;
- 17. RNG timing: the uniform-field RNG's and torch.rand's device time
-     per kernel (torch.profiler) apart from the host's cost per call
-     (host clock). Last, so that no phase timed before it runs in a
-     process that torch.profiler has traced.
+ 17. unroll (`--unroll_steps`, one captured CUDA graph of the step
+     replayed per step): (a) the RNG kernel, which reads its key from
+     device memory, bit-equal to its plain version for keys with the
+     high words 0x5EED, 0x80000000 and 0xFFFFFFFF; in a captured graph
+     two replays with two keys draw those keys' fields, and the control,
+     a key tensor made at capture and never rewritten, draws equal fields
+     and must fail that check; (b)
+     fundus at full width, bf16, 33 steps on the graph path (a capturing
+     call of 3, then 3 calls of 10 replays) against 33 eager steps of a
+     trainer from the same seed: every metric row and state tensor
+     bit-equal; deeplabv2_r50 (float32) 3 steps, a capturing call of one
+     step and two replays, each replayed step against the same step run
+     twice eagerly from the state before it (restored in place, which the
+     graph must survive): the loss terms within ZOO_LOSS_RTOL of the
+     step's loss and the state within ZOO_UPDATE_SHARE of the step's
+     update, printed beside the two eager runs' own distances; (c) the replays under the sync debug mode; (d) peak GiB,
+     graph against eager; and a torch.profiler window (CUDA activity) of
+     10 replays holding 10 uniform_fields_kernel by name (9: the profiler
+     can miss a kernel);
+ 18. RNG timing: the uniform-field RNG's (its key on the card) and
+     torch.rand's device time per kernel (torch.profiler) apart from
+     the host's cost per call (host clock). Last, so that no phase timed
+     before it runs in a process that torch.profiler has traced.
 Each phase prints its wall time. Then a JSON line with the kernels'
 numbers, the card line again, and `{"ok": true, "device": {...}}` as the
 last line.
@@ -234,6 +261,20 @@ def fail(msg):
     sys.exit(1)
 
 
+def reset_launches():
+    """Zero uniform_rng's launch count and the step graph's counts."""
+    from ust_run_tpu_torch.semisup import step
+    step.reset_counts()
+
+
+def rng_launches():
+    """uniform_rng launches that ran since `reset_launches`
+    (`ops.rng.launches`: the wrapper's launches outside a capture, plus,
+    for each replay of a captured step, the launches captured in it)."""
+    from ust_run_tpu_torch.ops import rng
+    return rng.launches
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -303,17 +344,19 @@ def host_us(fn, batches=21, per_batch=50):
 
 
 def time_rng(reps):
-    """uniform_rng and torch.rand at the main path's shape: device µs per
-    kernel, host µs per call and back-to-back µs per call, for the
-    `ust_run_tpu_torch` on sys.path."""
+    """uniform_rng (its key a tensor on the card, as the step passes it)
+    and torch.rand at the main path's shape: device µs per kernel, host µs
+    per call and back-to-back µs per call."""
     import torch
     from ust_run_tpu_torch.ops import rng
     n, size = RNG_SHAPE
     out = torch.empty((n, size, size), device="cuda")
-    kern = lambda: rng.uniform_fields(out, RNG_SEED)          # noqa: E731
+    key = torch.from_numpy(rng.key_words(RNG_SEED)).cuda()
+    kern = lambda: rng.uniform_fields(out, key)               # noqa: E731
     lib = lambda: torch.rand((n, size, size), device="cuda")  # noqa: E731
+    fns = [("uniform_rng", kern), ("torch.rand", lib)]
     res = {}
-    for name, fn in (("uniform_rng", kern), ("torch.rand", lib)):
+    for name, fn in fns:
         dev, per_call = profiled_us(fn, reps)
         res[name] = dict(device_us=dev, kernels_per_call=per_call,
                          host_us_per_call=host_us(fn),
@@ -416,7 +459,7 @@ def phase_rng_timing(card, entry):
     runs in a process that torch.profiler has traced."""
     t = time_rng(200)
     kern, lib = t["uniform_rng"], t["torch.rand"]
-    if round(kern["kernels_per_call"]) != 1:     # the profiler may drop one
+    if round(kern["kernels_per_call"]) != 1:  # the profiler may drop one
         fail(f"uniform_fields launched {kern['kernels_per_call']} kernels "
              "per call")
     entry.update(ms=kern["device_us"] / 1e3,
@@ -676,6 +719,7 @@ def phase_main_path(card, work, profile_out=None):
     import torch
     from ust_run_tpu_torch.data.synthetic import generate
     from ust_run_tpu_torch.ops import augment, fused_conv, rng
+    from ust_run_tpu_torch.semisup import step
 
     root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
                     n_test=N_TEST, size=256, seed=0)
@@ -687,7 +731,7 @@ def phase_main_path(card, work, profile_out=None):
     out, _ = augment.weak_augment_batch(
         img, lab, size=256, fillcolor=255,
         generator=torch.Generator(device="cuda").manual_seed(11),
-        host_generator=torch.Generator().manual_seed(12))
+        key=rng.draw_seed(torch.Generator().manual_seed(12)))
     black = (out < 1.0).float().mean(dim=(1, 2, 3)).max().item()
     if black >= 0.5:
         fail(f"weak augmentation blanked a sample ({black:.3f} black)")
@@ -702,10 +746,21 @@ def phase_main_path(card, work, profile_out=None):
             width, deepest) != (256, 3, 4, 4, 64, 1024):
         fail("main path is not the full-width fundus configuration")
 
-    rng.launches = fused_conv.launches = 0
+    if trainer.unroll != 10:
+        fail(f"main path runs {trainer.unroll} steps per call, not the "
+             "default --unroll_steps 10")
+    reset_launches()
+    fused_conv.launches = 0
+    # the warm-up call (3 steps) captures the step graph; the timed call
+    # replays it 10 times
     metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, TIMED_STEPS)
-    launches = {"uniform_rng": rng.launches,
+    launches = {"uniform_rng": rng_launches(),
                 "bn_relu_conv3x3": fused_conv.launches}
+    graphs = dict(step.graph_counts)
+    if (graphs["captures"], graphs["replays"]) != (1, WARMUP_STEPS
+                                                   + TIMED_STEPS - 1):
+        fail(f"main path: {graphs} (one capture, a replay per other step "
+             "expected)")
 
     steps = WARMUP_STEPS + TIMED_STEPS
     if len(metrics) != steps:
@@ -718,16 +773,29 @@ def phase_main_path(card, work, profile_out=None):
     step_ms = dt / TIMED_STEPS * 1e3
     last = metrics[-1]
     print(f"[main path] fundus UNet 64->1024, 3x256^2, batch 4+4, bf16 "
-          f"autocast: {WARMUP_STEPS}+{TIMED_STEPS} steps, "
-          f"{imgs / dt:.2f} img/s, {step_ms:.1f} ms/step, "
-          f"peak {peak_gib:.2f} GiB; uniform_rng launches "
-          f"{launches['uniform_rng']}, bn_relu_conv3x3 "
+          f"autocast, --unroll_steps 10: {WARMUP_STEPS}+{TIMED_STEPS} steps "
+          f"(a call of {WARMUP_STEPS} capturing the step graph, then "
+          f"{TIMED_STEPS} replays), {imgs / dt:.2f} img/s, {step_ms:.1f} "
+          f"ms/step, peak {peak_gib:.2f} GiB; uniform_rng launches "
+          f"{launches['uniform_rng']} (captured once, run by "
+          f"{graphs['replays']} replays and the capturing call's eager "
+          f"step), bn_relu_conv3x3 "
           f"{launches['bn_relu_conv3x3']} (not on the model's path); no "
           f"host-device sync in the timed steps; last loss "
           f"{float(last['loss']):.4f} sup {float(last['sup_loss']):.4f} | "
           f"{card}", flush=True)
     if profile_out:
         phase_profile(card, trainer, step_ms, profile_out)
+        # the same profile of eager steps (--unroll_steps 1)
+        eager, _ = make_trainer(train_argv("fundus", root, work, "eager",
+                                           "--unroll_steps", "1"))
+        _, dt_e, _ = step_window(eager, WARMUP_STEPS, TIMED_STEPS)
+        phase_profile(card, eager, dt_e / TIMED_STEPS * 1e3,
+                      os.path.splitext(profile_out)[0] + "_eager.json",
+                      "profile eager")
+        eager.close()
+        del eager
+        free_card()
     return launches, trainer, argv, imgs / dt
 
 
@@ -1007,7 +1075,6 @@ def phase_zoo_path(card, work, profile_out=None):
     resume, and the standalone evaluator with --save_img. Returns the RNG
     kernel's launches in the steps."""
     import torch
-    from ust_run_tpu_torch.ops import rng
 
     pre = os.path.join(work, "pretrained")
     file_sd = seeded_backbone_file(os.path.join(pre, "resnet101.pth"),
@@ -1040,9 +1107,9 @@ def phase_zoo_path(card, work, profile_out=None):
         lambda mod, i, o: shapes.append(tuple(o.shape)))
         for m in (st.student, st.teacher)]
 
-    rng.launches = 0
+    reset_launches()
     metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, TIMED_STEPS)
-    launches = rng.launches
+    launches = rng_launches()
     for h in hooks:
         h.remove()
     s8 = p.patch_size // 8
@@ -1110,7 +1177,6 @@ def phase_zoo_path(card, work, profile_out=None):
 
 def phase_zoo_short(card, work):
     """SHORT_STEPS steps of the other zoo models the trainer takes."""
-    from ust_run_tpu_torch.ops import rng
     cases = [("deeplabv2_r50", "fundus", (3, 4, 6, 3)),
              ("unet2d", "fundus", None), ("unet2d", "BUSI", None)]
     for model, dataset, layers in cases:
@@ -1123,11 +1189,11 @@ def phase_zoo_short(card, work):
         if type(net).__name__ != ("DeepLabV2" if layers else "Unet2D") \
                 or (layers and net.backbone.layers != layers):
             fail(f"--model {model} built {type(net).__name__}")
-        rng.launches = 0
+        reset_launches()
         times, metrics, peak_gib = steps_one_by_one(trainer, SHORT_STEPS)
         check_losses(metrics, f"{model} {dataset}")
-        if rng.launches != SHORT_STEPS:
-            fail(f"uniform_rng launched {rng.launches} times in "
+        if rng_launches() != SHORT_STEPS:
+            fail(f"uniform_rng launched {rng_launches()} times in "
                  f"{SHORT_STEPS} {model} steps")
         trainer.close()
         print(f"[zoo short] {dataset} --model {model}, "
@@ -1135,7 +1201,7 @@ def phase_zoo_short(card, work):
               f"{SHORT_STEPS} steps at " + ", ".join(f"{t:.1f}" for t in times)
               + f" ms (first includes warm-up), peak {peak_gib:.2f} GiB, last "
               f"loss {float(metrics[-1]['loss']):.4f}, uniform_rng launches "
-              f"{rng.launches} | {card}", flush=True)
+              f"{rng_launches()} | {card}", flush=True)
         del trainer, net
         free_card()
 
@@ -1167,11 +1233,11 @@ def phase_prostate_mnms(card, work):
     if (p.patch_size, p.num_channels, p.num_classes,
             type(trainer.state.student).__name__) != (384, 1, 2, "UNet"):
         fail("prostate phase is not the full-width UNet configuration")
-    rng.launches = 0
+    reset_launches()
     times, metrics, peak_gib = steps_one_by_one(trainer, SHORT_STEPS)
     check_losses(metrics, "prostate")
-    if rng.launches != SHORT_STEPS:
-        fail(f"uniform_rng launched {rng.launches} times in {SHORT_STEPS} "
+    if rng_launches() != SHORT_STEPS:
+        fail(f"uniform_rng launched {rng_launches()} times in {SHORT_STEPS} "
              f"prostate steps")
     res = {name: trainer.evaluator.evaluate(model, 1, ema=name == "ema")
            for name, model in (("ema", trainer.state.teacher),
@@ -1193,7 +1259,7 @@ def phase_prostate_mnms(card, work):
                     n_test=2, size=288, seed=3)
     log = logging.getLogger()
     handlers, level = list(log.handlers), log.level
-    rng.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:        # the entry logs to <snapshot>/log.txt and stdout
         trainer = train_mnms.main([
@@ -1212,8 +1278,8 @@ def phase_prostate_mnms(card, work):
     if (cfg.dataset, p.patch_size, p.num_channels, p.num_classes,
             trainer.state.step) != ("MNMS", 288, 1, 4, SHORT_STEPS):
         fail("train_mnms did not run the MNMS profile's steps")
-    if rng.launches != SHORT_STEPS:
-        fail(f"uniform_rng launched {rng.launches} times in {SHORT_STEPS} "
+    if rng_launches() != SHORT_STEPS:
+        fail(f"uniform_rng launched {rng_launches()} times in {SHORT_STEPS} "
              f"MNMS steps")
     text = open(os.path.join(snap, "log.txt")).read()
     lines = [ln for ln in text.splitlines() if "iteration" in ln
@@ -1320,7 +1386,6 @@ def dp_rank(rank, world, work, fundus_runs, zoo_argv, spatial=1,
     import torch
     from ust_run_tpu_torch import parallel
     from ust_run_tpu_torch.engine.evaluator import Evaluator
-    from ust_run_tpu_torch.ops import rng
 
     mesh = parallel.init_distributed(
         backend="gloo", device="cuda:0", rank=rank, world_size=world,
@@ -1333,7 +1398,7 @@ def dp_rank(rank, world, work, fundus_runs, zoo_argv, spatial=1,
             try:
                 trainer, _ = make_trainer(argv, mesh)
                 torch.cuda.reset_peak_memory_stats()
-                rng.launches = 0
+                reset_launches()
                 t0 = time.perf_counter()
                 metrics = trainer.train_steps(steps)
                 torch.cuda.synchronize()
@@ -1342,7 +1407,7 @@ def dp_rank(rank, world, work, fundus_runs, zoo_argv, spatial=1,
                 undo()
             st = state_tensors(trainer.state)
             res[name] = dict(
-                metrics=metrics, launches=rng.launches, secs=secs,
+                metrics=metrics, launches=rng_launches(), secs=secs,
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 replica_diff=mesh.max_replica_difference(list(st.values())))
             if rank == 0:
@@ -1355,9 +1420,9 @@ def dp_rank(rank, world, work, fundus_runs, zoo_argv, spatial=1,
         if zoo_argv is not None:
             with LogRecords():
                 trainer, _ = make_trainer(zoo_argv, mesh)
-            rng.launches = 0
+            reset_launches()
             metrics = trainer.train_steps(DP_STEPS)
-            launches = rng.launches
+            launches = rng_launches()
             st = state_tensors(trainer.state)
             diff = mesh.max_replica_difference(list(st.values()))
             ev = trainer.evaluator
@@ -1446,7 +1511,6 @@ def phase_data_parallel(card, work, main_img_s):
     import numpy as np
     import torch
     from ust_run_tpu_torch import parallel
-    from ust_run_tpu_torch.ops import rng
 
     root = os.path.join(work, "fundus")
     init, ref_metrics, ref, ref_grad, _ = world1_references(root, work)
@@ -1458,7 +1522,7 @@ def phase_data_parallel(card, work, main_img_s):
     try:
         trainer, cfg = make_trainer(
             train_argv("fundus", root, work, "dp_nccl"), mesh)
-        rng.launches = 0
+        reset_launches()
         warm = trainer.train_steps(DP_STEPS)
         got = state_tensors(trainer.state)
         unequal = [k for k in ref if not torch.equal(got[k], ref[k])]
@@ -1467,7 +1531,7 @@ def phase_data_parallel(card, work, main_img_s):
                     if not np.array_equal(m[k], r[k])]
         del got
         metrics, dt, peak_gib = step_window(trainer, 0, TIMED_STEPS)
-        launches_a = rng.launches
+        launches_a = rng_launches()
         trainer.close()
         del trainer
     finally:
@@ -1930,17 +1994,16 @@ def phase_instruments(card, work):
     import re
 
     import torch
-    from ust_run_tpu_torch.ops import rng
     from ust_run_tpu_torch.semisup.state import lr_at
 
     root = os.path.join(work, "fundus")
     prof = os.path.join(work, "trace")
-    rng.launches = 0
+    reset_launches()
     trainer, text = train_entry(
         train_argv("fundus", root, work, "stop", "--num_eval_iter", "3",
                    "--profile_dir", prof),
         {"UST_STOP_AFTER_ITERS": "6", "UST_WNORM_LOG": "1"})
-    launches = rng.launches
+    launches = rng_launches()
     payload = torch.load(os.path.join(trainer.snapshot_path,
                                       "checkpoint.pth"), map_location="cpu",
                          weights_only=True)
@@ -2027,6 +2090,279 @@ def phase_instruments(card, work):
     return launches
 
 
+UNROLL_STEPS = (3, 30)        # phase 17 (b): a capturing call, then replays
+PROFILED_REPLAYS = 10         # phase 17: replays in the profiler's window
+# phase 17 (b): deeplabv2_r50, each replayed step against the same step run
+# eagerly from the same state: the loss terms as a share of the step's loss
+# (equal on the H100) and the state after it as a share of the step's
+# update. The float32 DeepLab backward is not run-to-run deterministic even
+# eagerly (bilinear upsampling's backward adds with atomics): two eager
+# runs of one step lie 2.7e-06 and 3.5e-06 apart as a share of the update,
+# as the graph does (H100, PERF.md; the phase prints both), so the bar is
+# above that spread and far below a step's own size
+ZOO_LOSS_RTOL = 1e-5
+ZOO_UPDATE_SHARE = 1e-4
+
+
+def replay_fields(key_of):
+    """Fields of two replays of a captured uniform_fields call whose key is
+    `key_of(static)`, `static` a (2,) int32 device key rewritten to
+    RNG_SEED's and then RNG_SEED + 1's words before each replay."""
+    import torch
+    from ust_run_tpu_torch.ops import rng
+    n, size = RNG_SHAPE
+    static = torch.zeros(2, dtype=torch.int32, device="cuda")
+    out = torch.empty((n, size, size), device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rng.uniform_fields(out, key_of(static))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rng.uniform_fields(out, key_of(static))
+    fields = []
+    for seed in (RNG_SEED, RNG_SEED + 1):
+        static.copy_(torch.from_numpy(rng.key_words(seed)))
+        graph.replay()
+        fields.append(out.clone())
+    return fields
+
+
+def keyed(fields):
+    """Whether each replay drew its own key's fields."""
+    import torch
+    from ust_run_tpu_torch.ops import rng
+    n, size = RNG_SHAPE
+    return all(torch.equal(f, rng.uniform_batch_plain(n, size, s, "cuda"))
+               for f, s in zip(fields, (RNG_SEED, RNG_SEED + 1)))
+
+
+def unroll_run(root, work, tag, extra, first, rest):
+    """A fresh trainer's `first` steps, then `rest` under the sync debug
+    mode. Returns (metric rows, host state, ms per step of the rest,
+    peak GiB, uniform_rng launches run, graph counts)."""
+    import torch
+    from ust_run_tpu_torch.engine import checkpoint as ckpt
+    from ust_run_tpu_torch.semisup import step
+    trainer, _ = make_trainer(train_argv("fundus", root, work, tag, *extra))
+    free_card()
+    reset_launches()
+    rows = trainer.train_steps(first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows += trainer.train_steps(rest)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(rest, 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = ckpt.host_copy(ckpt.state_payload(trainer.state, 0, (0, 0, 0, 0),
+                                              {}))
+    return trainer, (rows, state, ms, peak, rng_launches(),
+                     dict(step.graph_counts))
+
+
+def state_leaves(payload, prefix=""):
+    """(name, tensor) of every tensor in a nested payload."""
+    import torch
+    if torch.is_tensor(payload):
+        yield prefix, payload
+    elif isinstance(payload, dict):
+        for k, v in payload.items():
+            yield from state_leaves(v, f"{prefix}.{k}")
+
+
+def rows_and_state_diff(a, b):
+    """(metric rows that differ, state tensors that differ) of two runs."""
+    import numpy as np
+    import torch
+    rows = [i for i, (x, y) in enumerate(zip(a[0], b[0]))
+            if any(not np.array_equal(x[k], y[k]) for k in x)]
+    sb = dict(state_leaves(b[1]))
+    state = [k for k, v in state_leaves(a[1]) if not torch.equal(v, sb[k])]
+    return rows, state
+
+
+def loss_rel_diff(a, b):
+    """The largest difference of the loss terms of two runs, each as a
+    share of its step's total loss (a term near 0, as unsup_loss_s before
+    the ramp, has no relative precision of its own)."""
+    return max(abs(float(x[k]) - float(y[k])) / abs(float(y["loss"]))
+               for x, y in zip(a[0], b[0]) for k in LOSSES)
+
+
+def r50_graph_vs_eager(root, work):
+    """deeplabv2_r50 at --unroll_steps 10, SHORT_STEPS steps: a capturing
+    call of one step, then calls of one replay; each replayed step is
+    also run twice as an eager step from the state before it (the
+    trainer's state restored in place, the samplers too), and the trainer
+    goes on from the replay's state. Returns (for each replayed step,
+    graph against the first eager run: its loss terms' distance as a share
+    of its loss and the states' (student, teacher, momentum) as a share of
+    the step's update; the same for the two eager runs; peak GiB)."""
+    import torch
+    from ust_run_tpu_torch.nan_replay import restore
+    from ust_run_tpu_torch.semisup import step as step_mod
+
+    trainer, _ = make_trainer(train_argv("fundus", root, work, "r50",
+                                         "--model", "deeplabv2_r50"))
+    free_card()
+
+    def back_to(payload):
+        restore(trainer, payload)
+        trainer.iter_num = trainer.state.step
+
+    def step(unroll):
+        trainer.unroll = unroll
+        return trainer.train_steps(1)
+
+    def host_state():
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in state_tensors(trainer.state).items()}
+
+    reset_launches()
+    check_losses(step(10), "r50 capturing call")
+    gaps, spreads = [], []
+    for _ in range(SHORT_STEPS - 1):
+        before, start = trainer.host_payload(trainer.state.epoch), host_state()
+        runs = [(step(10), host_state())]
+        after = trainer.host_payload(trainer.state.epoch)
+        for _ in range(2):
+            back_to(before)
+            runs.append((step(1), host_state()))
+        back_to(after)
+        for rows, _ in runs:
+            check_losses(rows, "r50 unroll")
+        (graph, g_state), (eager, e_state), (eager2, e2_state) = runs
+        gaps.append((loss_rel_diff((graph,), (eager,)),
+                     max(update_share(g_state, e_state, start, part)
+                         for part in ("student.", "teacher.", "momentum."))))
+        spreads.append((loss_rel_diff((eager2,), (eager,)),
+                        max(update_share(e2_state, e_state, start, part)
+                            for part in ("student.", "teacher.",
+                                         "momentum."))))
+    if step_mod.graph_counts["captures"] != 1 \
+            or step_mod.graph_counts["replays"] != SHORT_STEPS - 1:
+        fail(f"(b) r50 graph counts {step_mod.graph_counts}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.close()
+    return gaps, spreads, peak
+
+
+def phase_unroll(card, work):
+    """--unroll_steps on the card (the trainer's K-step call, one captured
+    CUDA graph of the step replayed per step): (a) the RNG kernel's
+    kernel bit-equal to its plain version for keys with the high words
+    set, and inside a captured graph two replays with two keys draw those
+    keys' fields, while the control (a key tensor made at capture and
+    never rewritten, as a key passed by value would be) must fail that
+    check; (b)
+    fundus at full width, bf16, 33 steps on the graph path (a call of 3
+    capturing it, 3 calls of 10 replays) against 33 eager steps of a
+    trainer from the same seed: metric rows and state bit-equal; 3 steps
+    of deeplabv2_r50 (float32; `r50_graph_vs_eager`), each replayed step
+    against the same step run eagerly from the same state, loss terms
+    within ZOO_LOSS_RTOL of the step's loss and the state within
+    ZOO_UPDATE_SHARE of the step's update, beside two eager runs' own
+    distances; (c) the replays
+    under the sync debug mode; (d) peak GiB, graph against eager; and a
+    profiler window of PROFILED_REPLAYS replays holding as many
+    uniform_rng kernels by name (or one fewer: the profiler can miss a
+    kernel). Returns the launches that ran in (b)'s graph
+    run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ust_run_tpu_torch.data.synthetic import generate
+    from ust_run_tpu_torch.ops import rng
+
+    n, size = RNG_SHAPE
+    for seed in (RNG_SEED, 2 ** 63 + 12345, 2 ** 64 - 1):
+        key = torch.from_numpy(rng.key_words(seed))
+        got = rng.uniform_fields(torch.empty((n, size, size), device="cuda"),
+                                 key.cuda())
+        if not torch.equal(got.cpu(), rng.uniform_batch_plain(n, size, key)):
+            fail(f"uniform_rng differs from its plain version for key "
+                 f"{seed:#x}")
+    if not keyed(replay_fields(lambda static: static)):
+        fail("two replays of a captured uniform_rng launch did not draw "
+             "their keys' fields")
+    fixed = torch.from_numpy(rng.key_words(RNG_SEED)).cuda()
+    frozen = replay_fields(lambda static: fixed)
+    if keyed(frozen) or not torch.equal(*frozen):
+        fail("the control (a key frozen at capture) passed the check")
+    print(f"[unroll] (a) uniform_rng bit-equal to plain "
+          f"at {(n, size, size)} for keys with the high word 0x5EED, "
+          f"0x80000000 and 0xFFFFFFFF; in a captured graph two replays drew "
+          f"their two keys' fields, the control with the key frozen at "
+          f"capture drew equal fields twice and failed the check | {card}",
+          flush=True)
+
+    root = generate("fundus", os.path.join(work, "unroll"), n_train=8,
+                    n_test=2, size=256, seed=0)
+    graph_tr, graph = unroll_run(root, work, "graph", [], *UNROLL_STEPS)
+    rows_g, _, ms_g, peak_g, runs_g, counts_g = graph
+    steps = sum(UNROLL_STEPS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph_tr.train_steps(PROFILED_REPLAYS)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e.name for e in prof.events() if e.device_type == cuda]
+    rng_named = sum("uniform_fields_kernel" in k for k in kernels)
+    graph_tr.close()
+    del graph_tr
+    free_card()
+    eager_tr, eager = unroll_run(root, work, "eager", ["--unroll_steps", "1"],
+                                 *UNROLL_STEPS)
+    eager_tr.close()
+    del eager_tr
+    _, _, ms_e, peak_e, runs_e, counts_e = eager
+    diff_rows, diff_state = rows_and_state_diff(graph, eager)
+    check_losses(rows_g, "unroll graph")
+    if (runs_g, runs_e, counts_g["captures"], counts_g["replays"],
+            counts_e["replays"]) != (steps, steps, 1, steps - 1, 0):
+        fail(f"(b) uniform_rng runs {runs_g} / {runs_e}, graph counts "
+             f"{counts_g} / {counts_e} in {steps} steps")
+    if diff_rows or diff_state:
+        fail(f"(b) graph against eager: rows {diff_rows[:5]}, state "
+             f"{diff_state[:5]} differ")
+    # the profiler can miss a kernel of its window (phase 18 allows the
+    # same), never two
+    if rng_named not in (PROFILED_REPLAYS - 1, PROFILED_REPLAYS):
+        fail(f"the profiler saw {rng_named} uniform_fields_kernel in "
+             f"{PROFILED_REPLAYS} replays")
+    print(f"[unroll] (b) fundus UNet, bf16, {steps} steps: graph path (1 "
+          f"capture, {counts_g['replays']} replays) bit-equal to eager "
+          f"steps: {len(rows_g)} metric rows and "
+          f"{len(list(state_leaves(graph[1])))} state tensors; (c) "
+          f"{UNROLL_STEPS[1]} replays under the sync debug mode; "
+          f"{ms_g:.1f} ms/step against {ms_e:.1f} eager; (d) peak "
+          f"{peak_g:.2f} GiB against {peak_e:.2f} eager; uniform_rng runs "
+          f"{runs_g} / {runs_e}; profiler: "
+          f"{len(kernels) / PROFILED_REPLAYS:.0f} kernels a replayed step, "
+          f"uniform_fields_kernel {rng_named} in {PROFILED_REPLAYS} | "
+          f"{card}", flush=True)
+    del graph, eager
+
+    gaps, spreads, peak_r50 = r50_graph_vs_eager(root, work)
+    if max(g[0] for g in gaps) > ZOO_LOSS_RTOL \
+            or max(g[1] for g in gaps) > ZOO_UPDATE_SHARE:
+        fail(f"(b) deeplabv2_r50 graph against eager (loss share, update "
+             f"share): {gaps}, bars {ZOO_LOSS_RTOL}, {ZOO_UPDATE_SHARE}")
+    print(f"[unroll] (b) deeplabv2_r50, float32, {SHORT_STEPS} steps (a "
+          f"capturing call of 1, then a replay each, every replayed step "
+          f"also run twice eagerly from the state before it, restored in "
+          f"place): graph against eager, loss terms as a share of the loss "
+          f"and state as a share of the step's update "
+          + ", ".join(f"{a:.2e} / {b:.2e}" for a, b in gaps)
+          + f" (bars {ZOO_LOSS_RTOL}, {ZOO_UPDATE_SHARE}); two eager runs "
+          + ", ".join(f"{a:.2e} / {b:.2e}" for a, b in spreads)
+          + f"; peak {peak_r50:.2f} GiB | {card}", flush=True)
+    return runs_g
+
+
 BENCH_RUNS = [({}, "ssl_train_images_per_sec_per_chip", 10),
               ({"UST_BENCH_MODEL": "deeplabv2_r50", "UST_BENCH_UNROLL": "2"},
                "ssl_train_images_per_sec_per_chip_deeplabv2_r50", 2)]
@@ -2067,8 +2403,10 @@ def bench_run(env, metric, unroll):
             or not math.isfinite(value) or value <= 0:
         fail(f"bench {env}: {lines[0]}")
     steps = (3 + 8) * unroll
+    graph = (1, steps - 1) if unroll > 1 else (0, 0)
     if (info["steps_run"], info["steps_timed"],
-            info["uniform_rng_launches"]) != (steps, 8 * unroll, steps) \
+            info["uniform_rng_launches"], info["graph_captures"],
+            info["graph_replays"]) != (steps, 8 * unroll, steps, *graph) \
             or not math.isfinite(info["last_loss"]):
         fail(f"bench {env}: {report[-1]}")
     return res, info
@@ -2393,11 +2731,20 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     free_card()
     bench_launches = timed("bench", phase_bench, card)
+    try:
+        unroll_launches = timed("unroll", phase_unroll, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_card()
     timed("rng timing", phase_rng_timing, card, kernels[0])
     print(f"[time] all: {time.perf_counter() - t0:.1f} s", flush=True)
     for k in kernels:
         if k["name"] == "uniform_rng":
             k["launches"] = launches["uniform_rng"]
+            k["launches_counted_as"] = (
+                "launches outside CUDA graphs (the wrapper's count) plus, "
+                "for each replay of the captured step, its captured launch")
+            k["unroll_launches"] = unroll_launches
             k["zoo_path_launches"] = zoo_launches
             k["data_parallel_launches"] = dp_launches
             k["instruments_launches"] = instruments_launches
@@ -2410,6 +2757,8 @@ def main():
             k["main_path_launches"] = launches[k["name"]]
         for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                     "max_abs_err"):
+            if key not in k:
+                continue
             if k[key] is not None and not math.isfinite(k[key]):
                 fail(f"{k['name']}: {key} = {k[key]}")
     print(json.dumps({"kernels": kernels}))

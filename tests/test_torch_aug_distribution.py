@@ -18,7 +18,7 @@ from PIL import Image
 
 from ust_run_tpu.ops import augment as jaug
 from ust_run_tpu_torch.data.synthetic import generate
-from ust_run_tpu_torch.ops import augment
+from ust_run_tpu_torch.ops import augment, rng
 
 S, N, CALLS = 64, 8, 40
 
@@ -59,7 +59,8 @@ def _port_samples(img, lab):
     out = {"weak": [], "strong": []}
     for _ in range(CALLS):
         w, _ = augment.weak_augment_batch(img_t, lab_t, size=S, fillcolor=255,
-                                          generator=gen, host_generator=host)
+                                          generator=gen,
+                                          key=rng.draw_seed(host))
         out["weak"].append(w.numpy())
         out["strong"].append(augment.strong_augment_batch(
             w, min_v=0.5, max_v=1.5, blur_radius=augment.blur_radius_for(S),

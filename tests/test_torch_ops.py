@@ -226,7 +226,7 @@ def test_weak_batch_not_degenerate():
     out, _ = augment.weak_augment_batch(
         img, lab, size=64, fillcolor=255,
         generator=torch.Generator().manual_seed(11),
-        host_generator=torch.Generator().manual_seed(12))
+        key=rng.draw_seed(torch.Generator().manual_seed(12)))
     black = (out.numpy() < 1.0).mean(axis=(1, 2, 3))
     assert black.max() < 0.5, black
 

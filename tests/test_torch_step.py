@@ -201,6 +201,8 @@ def test_one_step_matches_jax(dataset, epoch, choice_th, seed):
         err = np.linalg.norm(p.grad.numpy() - want) / np.linalg.norm(want)
         assert err < 1e-3, (name, err)
 
+    pinp["feed"] = pstep.unpack_feed(torch.from_numpy(
+        pstep.pack_feed(hp, ps.step, ps.epoch)), hp)
     pstep.apply_update(ps, pinp, loss_t, aux_t, hp)
 
     # ---- state after the step ------------------------------------------

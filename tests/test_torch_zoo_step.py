@@ -115,6 +115,8 @@ def test_unet2d_step_matches_jax():
         err = np.linalg.norm(p.grad.numpy() - want) / np.linalg.norm(want)
         assert err < 1e-3, (name, err)
 
+    pinp["feed"] = pstep.unpack_feed(torch.from_numpy(
+        pstep.pack_feed(hp, ps.step, ps.epoch)), hp)
     pstep.apply_update(ps, pinp, loss_t, aux_t, hp)
     tol = dict(rtol=1e-5, atol=1e-5)
     kinds = ("weight", "bias", "running_mean", "running_var")

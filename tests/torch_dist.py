@@ -219,9 +219,13 @@ def run_fed_step(mesh, hp, payload, tea_in, inp, model="unet"):
     st.student.load_state_dict(payload["student"])
     st.teacher.load_state_dict(payload["teacher"])
     st.step, st.epoch = payload["step"], payload["epoch"]
-    st.queue = pstate.CurriculumQueue(**payload["queue"])
-    st.lq = pstate.LQCarry(**payload["lq"])
-    st.choice_th = payload["choice_th"]
+    # copies: the step writes the state in place, and the ranks (threads)
+    # share `payload`
+    st.queue = pstate.CurriculumQueue(**{k: v.clone() for k, v in
+                                         payload["queue"].items()})
+    st.lq = pstate.LQCarry(**{k: v.clone() for k, v in
+                              payload["lq"].items()})
+    st.choice_th = payload["choice_th"].clone()
     if mesh is not None:
         for model in (st.student, st.teacher):
             sync_batchnorm(model, mesh)
@@ -229,6 +233,8 @@ def run_fed_step(mesh, hp, payload, tea_in, inp, model="unet"):
     st.optimizer.zero_grad()
     loss, aux = pstep.loss_terms(st, inp, hp, mesh)
     loss.backward()
+    inp = dict(inp, feed=pstep.unpack_feed(torch.from_numpy(
+        pstep.pack_feed(hp, st.step, st.epoch)), hp))
     pstep.apply_update(st, inp, loss, aux, hp, mesh)   # sums the grads
     state = state_tensors(st)
     out = dict(replica_diff=0.0 if mesh is None else

@@ -51,7 +51,8 @@ from ust_run_tpu.utils.torch_import import unet_from_torch_state_dict
 from ust_run_tpu_torch import config as pcfg
 from ust_run_tpu_torch.convert import unet_state_dict_from_jax
 from ust_run_tpu_torch.data.synthetic import generate
-from ust_run_tpu_torch.engine.trainer import Trainer, weight_health
+from ust_run_tpu_torch.engine.trainer import (Trainer, indices_to_device,
+                                              weight_health)
 from ust_run_tpu_torch.semisup import step as pstep
 
 PATCH = 64
@@ -150,7 +151,8 @@ def paired_run(root, workdir, steps, patch, every, init="jax", seed=1337,
                     records[-1][w]["dice"] = dice[w]
             if it == steps:
                 break
-            idx, dev_idx = pt._next_batch()
+            idx = {k: v[0] for k, v in pt._next_batches(1).items()}
+            dev_idx = indices_to_device(idx, pt.device)
             jidx = {k: np.asarray(v, np.int32) for k, v in idx.items()}
             record = records[-1]["iter"] == it
             if record:

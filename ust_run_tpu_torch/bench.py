@@ -3,21 +3,26 @@ one GPU (counterpart of the repo's bench.py).
 
     python -m ust_run_tpu_torch.bench [--device cpu]
 
-Times the trainer's own step (`semisup/step.py:step_fn`, the models and
-the state built as `engine/trainer.py` builds them, TF32 off, the UNet
-under bf16 autocast on the card) on a synthetic corpus of 256 images
-held on the device; each step receives only sampled indices. Prints ONE
-line on stdout, bench.py's JSON object: `metric`, `value` (images/s),
-`unit`, `vs_baseline`, `vs_baseline_range`, `baseline_img_per_sec` and
+Times the trainer's own calls (the models and the state built as
+`engine/trainer.py` builds them, TF32 off, the UNet under bf16 autocast
+on the card) on a synthetic corpus of 256 images held on the device;
+each step receives only sampled indices. A call is the trainer's K-step
+call, `semisup/step.py:multi_step` of `unroll` steps (on the card: the
+step captured once as a CUDA graph, replayed per step), or with
+UST_BENCH_UNROLL=1 one eager `step_fn`. Prints ONE line on stdout,
+bench.py's JSON object: `metric`, `value` (images/s), `unit`,
+`vs_baseline`, `vs_baseline_range`, `baseline_img_per_sec` and
 `baseline_basis`. The card's name and power limit, the steps timed and
-the uniform-RNG kernel's launches go to stderr.
+the uniform-RNG kernel's launches that ran (`ops.rng.launches`: the eager
+ones, plus each replay's captured one) go to stderr.
 
 A call is `unroll` steps fed from one (unroll, batch) draw of indices,
 so the batches are those bench.py feeds its multi-step. Warm-up is 3
-calls; then 8 calls are timed on the host clock, up to the fetch of the
-last step's metrics. Each step's metrics are fetched one step behind, as
-the trainer fetches them, so the host never waits on the step it has just
-queued: images/s = (label_bs + unlabel_bs) / (window / (8 x unroll)).
+calls (the first captures the graph); then 8 calls are timed on the host
+clock, up to the fetch of the last call's metrics. Each call's metrics
+are fetched one call behind, as the trainer fetches them, so the host
+never waits on the call it has just queued: images/s = (label_bs +
+unlabel_bs) / (window / (8 x unroll)).
 
 Environment (bench.py's variables):
   UST_BENCH_DATASET   fundus (default), prostate, BUSI or MNMS
@@ -50,10 +55,10 @@ import torch
 from ust_run_tpu_torch.config import TrainConfig
 from ust_run_tpu_torch.engine.trainer import (Pending, indices_to_device,
                                               set_numerics)
-from ust_run_tpu_torch.ops import rng as rng_op
+from ust_run_tpu_torch.ops import rng
+from ust_run_tpu_torch.semisup import step as step_mod
 from ust_run_tpu_torch.semisup.state import build_model, create_train_state
-from ust_run_tpu_torch.semisup.step import (HyperParams, step_fn,
-                                            unpack_metrics)
+from ust_run_tpu_torch.semisup.step import HyperParams, unpack_metrics
 from ust_run_tpu_torch.utils.device import card_line, resolve_device
 
 METRIC = "ssl_train_images_per_sec_per_chip"
@@ -169,22 +174,29 @@ class Bench:
         self.steps = 0
 
     def calls(self, n):
-        """`n` calls of `unroll` steps. Each step's metrics are fetched
-        after the next step is queued, the last one at the end; returns
+        """`n` calls of `unroll` steps. Each call's metrics are fetched
+        after the next call is queued, the last one at the end; returns
         the last step's metrics (numpy)."""
         hp, pending = self.hp, None
         for _ in range(n):
             idx = indices_to_device(
                 draw_indices(self.rng, N_CORPUS, self.unroll, hp.label_bs,
                              hp.unlabel_bs), self.device)
-            for i in range(self.unroll):
-                metrics = step_fn(self.state, self.data,
-                                  {k: v[i] for k, v in idx.items()}, hp)
-                self.steps += 1
-                if pending is not None:
-                    pending.fetch()
-                pending = Pending(self.steps, metrics, None)
-        return pending.fetch()
+            if self.unroll == 1:
+                metrics = step_mod.step_fn(
+                    self.state, self.data, {k: v[0] for k, v in idx.items()},
+                    hp)
+            else:
+                feeds = step_mod.host_to_device(
+                    step_mod.draw_feeds(self.state, hp, self.unroll),
+                    self.device)
+                metrics = step_mod.multi_step(self.state, self.data, idx,
+                                              feeds, hp)
+            self.steps += self.unroll
+            if pending is not None:
+                pending.fetch()
+            pending = Pending(self.steps, metrics, None)
+        return pending.fetch().reshape(self.unroll, -1)[-1]
 
 
 def measure(bench, warmup_calls=WARMUP_CALLS, timed_calls=TIMED_CALLS):
@@ -230,11 +242,11 @@ def main(argv=None):
     try:
         cfg, bench_bs = bench_config(os.environ)
         bench = Bench(cfg, args.device)
-        rng_op.launches = 0
+        step_mod.reset_counts()
         img_s, last = measure(bench)
     finally:
         done.set()
-    launches = rng_op.launches
+    launches = rng.launches
     on_card = bench.device.type == "cuda"
     if on_card and launches != bench.steps:
         raise RuntimeError(f"uniform_rng launched {launches} times in "
@@ -249,6 +261,8 @@ def main(argv=None):
         "steps_run": bench.steps,
         # the CPU runs the kernel's plain version, which is no launch
         "uniform_rng_launches": launches if on_card else None,
+        "graph_captures": step_mod.graph_counts["captures"],
+        "graph_replays": step_mod.graph_counts["replays"],
         "last_loss": float(unpack_metrics(last, hp)["loss"])}),
         file=sys.stderr, flush=True)
     print(json.dumps(result(img_s, cfg, bench_bs)), flush=True)

@@ -7,8 +7,9 @@ is kept, backed by a dataclass, plus `--device`.
 
 Flags that only shape the JAX package's TPU program are accepted and
 ignored, because they compute the same function: `pack_l1` and
-`split_up` (layout forms of the same UNet), `unroll_steps` (steps per
-dispatch). `num_devices` names the data-parallel mesh size, which in the
+`split_up` (layout forms of the same UNet). `unroll_steps` is the steps
+per call, as in JAX (engine/trainer.py:unroll_of): on the card the call
+replays a CUDA graph of the step. `num_devices` names the data-parallel mesh size, which in the
 port is the number of ranks torchrun starts: any other value raises
 (parallel.check_num_devices). `amp=1` means bf16 autocast on CUDA with
 f32 parameters and f32 BatchNorm statistics.
@@ -128,7 +129,7 @@ class TrainConfig:
     log_interval: int = 50              # host metric fetch cadence
     profile_dir: Optional[str] = None   # torch.profiler trace of steps 2-3
     patch_override: Optional[int] = None  # shrink patch size (smoke tests)
-    unroll_steps: int = 10              # accepted and ignored (eager steps)
+    unroll_steps: int = 10              # steps per call (CUDA graph replays)
     # ImageNet-pretrained backbone weights dir for the DeepLab configs;
     # default mirrors the reference's hardcoded load path
     # (networks/backbone/resnet.py:185-190). Expects <root>/<arch>.pth.
@@ -240,7 +241,11 @@ def build_parser(default_dataset="BUSI", mnms=False) -> argparse.ArgumentParser:
     parser.add_argument("--patch_override", type=int, default=None,
                         help="override the dataset patch size (smoke tests)")
     parser.add_argument("--unroll_steps", type=int, default=10,
-                        help="accepted for CLI compatibility; unused")
+                        help="steps per call when it divides num_eval_iter "
+                             "(else 1): on CUDA one captured CUDA graph of "
+                             "the step replayed per step, on the CPU and "
+                             "with a mesh eager steps; 1 = one eager step "
+                             "per call")
     parser.add_argument("--pretrained_root", type=str,
                         default="../../checkpoints/pretrained",
                         help="dir holding ImageNet resnet50/101.pth for "

@@ -19,13 +19,19 @@
 // When S*S is not a multiple of 4, the last quad of each field writes only
 // the values that exist.
 //
-// Bound: the kernel writes n*S*S*4 bytes and reads nothing. On the main
-// path (n = 16, S = 256) that is 4.19 MB, about 1.3 us at the H100's
+// Bound: the kernel writes n*S*S*4 bytes and reads the 8-byte key. On
+// the main path (n = 16, S = 256) that is 4.19 MB, about 1.3 us at the H100's
 // 3.35 TB/s; the arithmetic (10 rounds of 2 32-bit multiply-high/low
 // pairs, xors and key adds per 4 values) is below that at the card's
 // integer rate. At this size the launch itself dominates. Design: one
 // thread per quad, one 16-byte store per thread when the field is
 // 16-byte aligned, so neighbouring threads write neighbouring addresses.
+//
+// The key is read from two words in device memory (low word first), so
+// that a launch captured in a CUDA graph draws a new field on each replay
+// after the key there is rewritten (a graph freezes host arguments). Each
+// thread loads the 8 key bytes through the read-only cache before its
+// Philox call.
 //
 // Plain C interface, built with nvcc into a shared library and called
 // through ctypes. The launch goes on the caller's stream; the function
@@ -66,9 +72,12 @@ __device__ __forceinline__ float to_unit(uint32_t w) {
 
 __global__ void __launch_bounds__(kThreads)
 uniform_fields_kernel(float* __restrict__ out, int64_t per_field,
-                      int64_t quads, uint32_t k0, uint32_t k1, int vec) {
+                      int64_t quads, const uint32_t* __restrict__ key,
+                      int vec) {
   const int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (q >= quads) return;
+  const uint32_t k0 = __ldg(key);
+  const uint32_t k1 = __ldg(key + 1);
   const uint32_t field = blockIdx.y;
   const uint4 r = philox4x32_10(
       make_uint4(static_cast<uint32_t>(q), field, 0u, 0u), k0, k1);
@@ -87,11 +96,12 @@ uniform_fields_kernel(float* __restrict__ out, int64_t per_field,
 
 }  // namespace
 
+// `key`: two uint32 words on the device (low word first, as split_seed).
 extern "C" int uniform_fields_launch(float* out, int n, int size,
-                                     uint32_t k0, uint32_t k1,
-                                     void* stream) {
+                                     const uint32_t* key, void* stream) {
   if (n <= 0 || size <= 0) return static_cast<int>(cudaSuccess);
-  if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 65535 || key == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t per_field = static_cast<int64_t>(size) * size;
   const int64_t quads = (per_field + 3) / 4;
   const int vec = (per_field % 4 == 0) &&
@@ -100,6 +110,6 @@ extern "C" int uniform_fields_launch(float* out, int n, int size,
                   static_cast<unsigned>(n));
   uniform_fields_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      out, per_field, quads, k0, k1, vec);
+      out, per_field, quads, key, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,6 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from ust_run_tpu_torch import convert
-from ust_run_tpu_torch.semisup.state import CurriculumQueue, LQCarry
 
 # --model -> the bridge from the JAX package's variables
 JAX_BRIDGES = {"unet": convert.unet_state_dict_from_jax,
@@ -100,7 +99,7 @@ def state_payload(state, epoch, bests, samplers):
         "epoch": epoch,
         "state_dict": state.student.state_dict(),
         "ema_state_dict": state.teacher.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": optimizer_payload(state.optimizer),
         "step": state.step,
         "queue": state.queue.fields(),
         "lq": {"img": state.lq.img, "pl": state.lq.pl, "conf": state.lq.conf,
@@ -113,6 +112,16 @@ def state_payload(state, epoch, bests, samplers):
         "stu_best_dice": float(stu_best_dice),
         "stu_best_iter": int(stu_best_iter),
     }
+
+
+def optimizer_payload(optimizer):
+    """The optimizer's state_dict with each group's learning rate a number,
+    as upstream saves it (the step sets it as a device tensor)."""
+    sd = optimizer.state_dict()
+    for group in sd["param_groups"]:
+        if torch.is_tensor(group["lr"]):
+            group["lr"] = float(group["lr"])
+    return sd
 
 
 def load_checkpoint(path):
@@ -195,26 +204,48 @@ def restore_onto(module, state_dict):
 
 
 def restore_state(state, payload):
-    """Put a rolling checkpoint back into the live train state, in place.
-    The state gets copies: training on never writes into `payload` (on
-    the CPU, `.to` and the optimizer's `load_state_dict` would alias it),
-    so a payload can be restored again."""
+    """Put a rolling checkpoint back into the live train state, in place:
+    every tensor is copied into the state's own storage (the momentum
+    buffers too, where the state has them), so a captured step graph
+    (semisup/step.py) goes on reading and writing the live state, and
+    training on never writes into `payload`, which can be restored
+    again. The optimizer keeps its own update route (`fused`, `foreach`)
+    whatever the payload's was."""
     restore_onto(state.student, payload["state_dict"])
     restore_onto(state.teacher, payload["ema_state_dict"])
     live_q = state.queue.fields()
     _check_tensors(live_q, payload["queue"], "queue")
     lq = payload["lq"]
-    _check_tensors({"img": state.lq.img, "pl": state.lq.pl,
-                    "conf": state.lq.conf}, {k: lq[k] for k in
-                                             ("img", "pl", "conf")}, "lq")
-    state.optimizer.load_state_dict(host_copy(payload["optimizer"]))
-    dev = state.choice_th.device
-    state.queue = CurriculumQueue(**{k: payload["queue"][k].to(dev, copy=True)
-                                     for k in live_q})
-    state.lq = LQCarry(**{k: lq[k].to(dev, copy=True) for k in
-                          ("img", "pl", "conf", "valid")})
-    state.choice_th = payload["choice_th"].to(dev, copy=True)
+    live_lq = state.lq.fields()
+    _check_tensors({k: live_lq[k] for k in ("img", "pl", "conf")},
+                   {k: lq[k] for k in ("img", "pl", "conf")}, "lq")
+    _restore_optimizer(state.optimizer, payload["optimizer"])
+    for k, v in live_q.items():
+        v.copy_(payload["queue"][k])
+    for k, v in live_lq.items():
+        v.copy_(lq[k])
+    state.choice_th.copy_(payload["choice_th"])
     state.generator.set_state(payload["generator"])
     state.host_generator.set_state(payload["host_generator"])
     state.step = int(payload["step"])
     return state
+
+
+def _restore_optimizer(optimizer, saved):
+    routes = [{k: g[k] for k in ("fused", "foreach")}
+              for g in optimizer.param_groups]
+    live = {p: st["momentum_buffer"] for p, st in optimizer.state.items()
+            if st.get("momentum_buffer") is not None}
+    optimizer.load_state_dict(host_copy(saved))
+    for group, route in zip(optimizer.param_groups, routes):
+        group.update(route)
+    # a payload from before the first update has no buffer: zero, which
+    # the next update's 0.9 * 0 + d turns into d, as the first update does
+    for p, buf in live.items():
+        st = optimizer.state[p]
+        saved_buf = st.get("momentum_buffer")
+        if saved_buf is None:
+            buf.zero_()
+        else:
+            buf.copy_(saved_buf)
+        st["momentum_buffer"] = buf

@@ -7,10 +7,16 @@ ust_run_tpu/engine/trainer.py).
     the sampled indices (trainer.py:123-135);
   * the epoch loop: num_eval_iter steps per epoch, LQ reset at epoch start
     (train.py:576), epoch-end curriculum summaries (train.py:888-907);
+  * `--unroll_steps K` (trainer.py:111-121): K steps per call of
+    `semisup.step.multi_step` when K > 1 divides num_eval_iter, else one
+    eager `step_fn` per call. A call takes K index batches and K feeds,
+    each stacked and copied to the device through pinned memory in one
+    copy; on the card it replays a CUDA graph of the step (captured in
+    the first call), on the CPU and with a mesh it runs K eager steps;
   * per-step logging with the reference's tag names (train.py:859-870).
-    The packed metrics of a step are copied to pinned host memory without
-    blocking and read one step later, so the host never waits on the step
-    it has just queued (trainer.py:274-282, 329-349);
+    The packed metrics of a call (K rows) are copied to pinned host
+    memory without blocking and read one call later, so the host never
+    waits on the call it has just queued (trainer.py:274-282, 329-349);
   * EMA and student evaluation every epoch with best-dice tracking and
     the best-student snapshot (train.py:913-954; trainer.py:463-532);
   * the rolling checkpoint, written by a worker thread from a host copy,
@@ -28,13 +34,14 @@ ust_run_tpu/engine/trainer.py).
     `UST_WNORM_LOG=1` logs each top-level module's largest |parameter|
     and |BN statistic| every epoch; `UST_NAN_DEBUG=DIR` keeps a host
     snapshot of the train state every `UST_NAN_SNAP` iterations (default
-    250) and the index batches since, and at the first non-finite loss
-    term writes both to DIR (`state.pt`, `batches.pt`; replayed by
+    250, taken before a call) and the index batches since (each call's,
+    (K, B)), and at the first non-finite loss term writes both to DIR
+    (`state.pt`, `batches.pt` with the run's `unroll`; replayed by
     `python -m ust_run_tpu_torch.nan_replay`) and exits with code 3;
     `--profile_dir` writes a torch.profiler Chrome trace of the first
-    epoch's steps 2-3 (one file per rank); on a terminal a tqdm bar shows
-    the last drained step. With none of them set, the step path is
-    unchanged.
+    epoch's calls 2-3 (steps 2-3 at unroll 1; one file per rank); on a
+    terminal a tqdm bar shows the last drained step. With none of them
+    set, the step path is unchanged.
 """
 
 import logging
@@ -53,8 +60,9 @@ from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.evaluator import Evaluator
 from ust_run_tpu_torch.semisup.state import (backbone_arch, build_model,
                                              create_train_state, reset_epoch)
-from ust_run_tpu_torch.semisup.step import (HyperParams, step_fn,
-                                            unpack_metrics)
+from ust_run_tpu_torch.semisup.step import (HyperParams, draw_feeds,
+                                            host_to_device, multi_step,
+                                            step_fn, unpack_metrics)
 from ust_run_tpu_torch.utils.device import resolve_device
 from ust_run_tpu_torch.utils.logging_utils import MetricWriter
 from ust_run_tpu_torch.utils.meters import AverageMeter
@@ -73,10 +81,18 @@ def set_numerics():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def unroll_of(cfg):
+    """Steps per call: --unroll_steps when it is above 1 and divides
+    num_eval_iter, else 1 (trainer.py:113-115)."""
+    k = cfg.unroll_steps
+    return k if k > 1 and cfg.num_eval_iter % k == 0 else 1
+
+
 class Pending:
-    """One step's packed metrics on their way to the host: a CUDA tensor
-    is copied to pinned memory without blocking, and `fetch` waits on an
-    event recorded after the copy (not a synchronising call)."""
+    """One call's packed metrics on their way to the host (`it`: the
+    iteration of its first row): a CUDA tensor is copied to pinned memory
+    without blocking, and `fetch` waits on an event recorded after the
+    copy (not a synchronising call)."""
 
     def __init__(self, it, metrics, ulb_idx):
         self.it = it
@@ -99,13 +115,8 @@ class Pending:
 def indices_to_device(idx, device):
     """{name: host index array} -> {name: int64 tensor on `device`}; to a
     CUDA device through pinned memory without blocking."""
-    dev = {}
-    for k, v in idx.items():
-        t = torch.from_numpy(np.asarray(v, np.int64))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        dev[k] = t
-    return dev
+    return {k: host_to_device(np.asarray(v, np.int64), device)
+            for k, v in idx.items()}
 
 
 class Trainer:
@@ -131,6 +142,7 @@ class Trainer:
         p = cfg.profile()
         self.profile_ = p
         self.hp = HyperParams.from_config(cfg)
+        self.unroll = unroll_of(cfg)
 
         lb_num = cfg.labeled_count()
         data_num = p.domain_len[cfg.lb_domain - 1]
@@ -242,10 +254,12 @@ class Trainer:
         logging.info("Models restored from epoch %d", self.start_epoch)
 
     # ------------------------------------------------------------------
-    def _next_batch(self):
-        idx = {"lb_idx": self.lb_pipe.next_indices(),
-               "ulb_idx": self.ulb_pipe.next_indices()}
-        return idx, indices_to_device(idx, self.device)
+    def _next_batches(self, k):
+        """k index batches, stacked: {name: (k, B) int64 numpy}."""
+        rows = [{"lb_idx": self.lb_pipe.next_indices(),
+                 "ulb_idx": self.ulb_pipe.next_indices()} for _ in range(k)]
+        return {name: np.stack([np.asarray(r[name], np.int64) for r in rows])
+                for name in rows[0]}
 
     def new_epoch(self, epoch_num):
         n_part = self.profile_.n_part
@@ -259,35 +273,47 @@ class Trainer:
             dc=np.zeros(self.cfg.domain_num), names={})
 
     def train_steps(self, n):
-        """Run n steps; returns the unpacked metrics of each, in order.
-        Each step's metrics are read after the next step is queued; the
-        last one is read at the end."""
-        out = []
-        for _ in range(n):
+        """Run n steps in calls of `unroll` steps (a last shorter call
+        takes the rest); returns the unpacked metrics of each step, in
+        order. Each call's metrics are read after the next call is
+        queued; the last one at the end."""
+        out, done = [], 0
+        while done < n:
+            k = min(self.unroll, n - done)
             if self._nan_dir and (self._nan_snap is None or self.iter_num
                                   - self._nan_snap[0] >= self._nan_snap_every):
                 # a snapshot follows a step whose losses were checked
                 out += self._flush()
                 self._take_snapshot()
-            idx, dev_idx = self._next_batch()
+            idx = self._next_batches(k)
             if self._nan_dir:
                 self._nan_batches.append(
                     {"epoch": self.state.epoch,
-                     **{k: torch.from_numpy(np.asarray(v, np.int64))
-                        for k, v in idx.items()}})
-            metrics = step_fn(self.state, self.device_data, dev_idx, self.hp,
-                              self.mesh)
-            self.iter_num += 1
+                     **{name: torch.from_numpy(v) for name, v in idx.items()}})
+            dev_idx = indices_to_device(idx, self.device)
+            if self.unroll == 1:
+                metrics = step_fn(self.state, self.device_data,
+                                  {name: v[0] for name, v in dev_idx.items()},
+                                  self.hp, self.mesh)
+            else:
+                feeds = host_to_device(draw_feeds(self.state, self.hp, k),
+                                       self.device)
+                metrics = multi_step(self.state, self.device_data, dev_idx,
+                                     feeds, self.hp, self.mesh)
             out += self._flush()
-            self._pending = Pending(self.iter_num, metrics, idx["ulb_idx"])
+            self._pending = Pending(self.iter_num + 1, metrics,
+                                    idx["ulb_idx"])
+            self.iter_num += k
+            done += k
             if self._bar is not None:
-                self._bar.update(1)
+                self._bar.update(k)
         return out + self._flush()
 
     def _flush(self):
-        """The pending step's metrics, read ([] if there is none)."""
+        """The pending call's metrics, one per step ([] if there is
+        none)."""
         pending, self._pending = self._pending, None
-        return [] if pending is None else [self._drain(pending)]
+        return [] if pending is None else self._drain(pending)
 
     def train(self):
         cfg = self.cfg
@@ -324,24 +350,25 @@ class Trainer:
         self.close()
 
     def _profiled_steps(self, n):
-        """n steps, the 2nd and 3rd under torch.profiler (trainer.py
-        :253-261), written as a Chrome trace to `--profile_dir`, one file
-        per rank."""
+        """n steps, the 2nd and 3rd call (of `unroll` steps) under
+        torch.profiler (trainer.py:253-261), written as a Chrome trace to
+        `--profile_dir`, one file per rank."""
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        self.train_steps(min(n, 1))
+        k = self.unroll
+        self.train_steps(min(n, k))
         # train_steps returns once the last step's metrics have reached the
-        # host, so the trace holds all of both steps' device work
+        # host, so the trace holds all of both calls' device work
         with profile(activities=activities) as prof:
-            self.train_steps(min(n - 1, 2))
+            self.train_steps(min(n - k, 2 * k))
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
         rank = 0 if self.mesh is None else self.mesh.rank
         path = os.path.join(self.cfg.profile_dir, f"trace_rank{rank}.json")
         prof.export_chrome_trace(path)
         logging.info("profiler trace written to %s", path)
-        self.train_steps(max(n - 3, 0))
+        self.train_steps(max(n - 3 * k, 0))
 
     def _progress_bar(self, epoch_num):
         """The reference's live tqdm bar (train.py:874-879), on a terminal
@@ -381,17 +408,23 @@ class Trainer:
                          int(m["dc"][i]))
 
     def _drain(self, pending):
-        m = unpack_metrics(pending.fetch(), self.hp)
-        if self._nan_dir:
-            bad = [k for k in LOSS_TERMS if not np.isfinite(m[k])]
-            if bad:
-                self._nan_dump(pending.it, bad)
-        self._log_step(pending.it, m, np.asarray(pending.ulb_idx))
+        """A call's rows, step by step (trainer.py:329-349): the NaN check,
+        the meters and log lines; the bar shows the last row."""
+        arr = pending.fetch().reshape(len(pending.ulb_idx), -1)
+        rows = []
+        for j, vec in enumerate(arr):
+            it = pending.it + j
+            m = unpack_metrics(vec, self.hp)
+            if self._nan_dir:
+                bad = [k for k in LOSS_TERMS if not np.isfinite(m[k])]
+                if bad:
+                    self._nan_dump(it, bad)
+            self._log_step(it, m, pending.ulb_idx[j])
+            rows.append(m)
         if self._bar is not None:
             self._bar.set_description(
-                bar_description(self.cfg.dataset, pending.it, m),
-                refresh=False)
-        return m
+                bar_description(self.cfg.dataset, it, m), refresh=False)
+        return rows
 
     def _take_snapshot(self):
         """The rolling host snapshot of UST_NAN_DEBUG: the checkpoint
@@ -414,11 +447,13 @@ class Trainer:
                               "world": 1 if self.mesh is None
                               else self.mesh.world})
             ckpt.atomic_save(os.path.join(self._nan_dir, "batches.pt"),
-                             {"batches": self._nan_batches})
+                             {"unroll": self.unroll,
+                              "batches": self._nan_batches})
             logging.error(
                 "non-finite %s at iteration %d; snapshot of iteration %d and "
                 "%d batches dumped to %s", ",".join(bad_terms), it, snap_it,
-                len(self._nan_batches), self._nan_dir)
+                sum(len(b["lb_idx"]) for b in self._nan_batches),
+                self._nan_dir)
         self.close()
         raise SystemExit(3)
 

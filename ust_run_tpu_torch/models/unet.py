@@ -138,8 +138,10 @@ class UNet(nn.Module):
         gkw = dict(groups=groups, group_sizes=group_sizes,
                    group_valid=group_valid)
         x = x.permute(0, 3, 1, 2)          # NCHW view, channels_last memory
+        # no cast cache: each weight is cast once per call anyway, and a
+        # cache would hold tensors across a CUDA graph capture's boundary
         with torch.autocast(device_type=x.device.type, dtype=torch.bfloat16,
-                            enabled=self.amp):
+                            enabled=self.amp, cache_enabled=False):
             x1 = self.inc(x, **gkw)
             x2 = self.down1(x1, **gkw)
             x3 = self.down2(x2, **gkw)

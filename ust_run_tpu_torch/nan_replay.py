@@ -6,13 +6,16 @@
 
 The trainer's forensics mode (engine/trainer.py, UST_NAN_DEBUG=DIR) dumps
 its last host snapshot of the train state (`state.pt`) and every index
-batch applied after it (`batches.pt`). This tool builds the trainer from
+batch applied after it (`batches.pt`: one entry per call, its K rows
+stacked, and the run's `unroll`). This tool builds the trainer from
 the same flags (config, datasets, corpus on the device), restores the
 snapshot (models, SGD, queue, LQ, choice_th, both generators, the
-samplers) and re-runs the batches one step at a time, with a health line
-every `--health-every` steps and at the first non-finite loss term. The
-step is run-to-run deterministic, so the replay of a one-process run fails
-at the iteration the trainer logged; one that does not is a fault. The
+samplers) and re-runs the batches one eager step at a time, with a
+health line every `--health-every` steps and at the first non-finite loss
+term, which it names by iteration and by its place in its K-step call.
+The eager step computes what a call's steps compute, so the replay of a
+one-process run fails at the iteration the trainer logged; one that
+does not is a fault. The
 replay runs in one process: a dump of a run over several ranks (its
 `world` in `state.pt`) replays within float summation order of that run,
 so a failure at the edge may not reproduce. At that step it goes back
@@ -38,8 +41,9 @@ from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.trainer import (LOSS_TERMS, Trainer,
                                               weight_health)
 from ust_run_tpu_torch.semisup.state import reset_epoch
-from ust_run_tpu_torch.semisup.step import (build_inputs, loss_terms, step_fn,
-                                            unpack_metrics)
+from ust_run_tpu_torch.semisup.step import (build_inputs, draw_feed,
+                                            host_to_device, loss_terms,
+                                            step_fn, unpack_metrics)
 from ust_run_tpu_torch.utils.device import resolve_device
 
 
@@ -66,17 +70,24 @@ def replay(cfg, dump, health_every=10):
     replayed)."""
     snap = torch.load(os.path.join(dump, "state.pt"), map_location="cpu",
                       weights_only=True)
-    batches = torch.load(os.path.join(dump, "batches.pt"),
-                         weights_only=True)["batches"]
+    dumped = torch.load(os.path.join(dump, "batches.pt"), weights_only=True)
+    unroll = dumped.get("unroll", 1)
+    # one entry per step: (call, place in the call, batch)
+    batches = [(c, j, {"epoch": b["epoch"], "lb_idx": lb, "ulb_idx": ulb})
+               for c, b in enumerate(dumped["batches"])
+               for j, (lb, ulb) in enumerate(zip(
+                   b["lb_idx"].reshape(-1, b["lb_idx"].shape[-1]),
+                   b["ulb_idx"].reshape(-1, b["ulb_idx"].shape[-1])))]
     trainer = Trainer(cfg, dump)
     try:
         state = trainer.state
         restore(trainer, snap["state"])
         it0 = snap["iter"]
         print(f"snapshot at iter {it0}, {len(batches)} single steps to "
-              "replay", flush=True)
+              f"replay ({len(dumped['batches'])} calls of unroll {unroll})",
+              flush=True)
         rows = []
-        for i, batch in enumerate(batches):
+        for i, (call, place, batch) in enumerate(batches):
             it = it0 + i + 1
             m = replay_step(trainer, batch)
             rows.append(m)
@@ -93,10 +104,12 @@ def replay(cfg, dump, health_every=10):
                       f"|bn|max={max(bn.values()):.3e}", flush=True)
             if bad:
                 print(f"\n=== first non-finite at iter {it}: {bad} ===")
+                print(f"step {place + 1} of call {call + 1} since the "
+                      f"snapshot (unroll {unroll})")
                 # back to the step before: the snapshot, then the steps
                 # that passed, again (the step is deterministic)
                 restore(trainer, snap["state"])
-                for b in batches[:i]:
+                for _, _, b in batches[:i]:
                     replay_step(trainer, b)
                 out = os.path.join(dump, "prefail.pt")
                 ckpt.atomic_save(out, {"iter": it - 1, "batch": batch,
@@ -191,7 +204,9 @@ def dissect(trainer, batch):
     try:
         with torch.autograd.detect_anomaly():
             inp = build_inputs(state, trainer.device_data,
-                               on_device(trainer, batch), hp)
+                               on_device(trainer, batch), hp,
+                               feed=host_to_device(draw_feed(state, hp),
+                                                   trainer.device))
             for k in ("lb_x_w", "ulb_x_w", "ulb_x_s", "ulb_x_s_ul",
                       "ulb_x_s_lu", "lq_s"):
                 stat(k, inp[k])

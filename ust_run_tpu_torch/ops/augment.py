@@ -25,7 +25,7 @@ import torch
 from ust_run_tpu_torch.ops.resample import (bilinear_gather, gaussian_kernel,
                                             nearest_gather,
                                             separable_gaussian_blur)
-from ust_run_tpu_torch.ops.rng import uniform_batch
+from ust_run_tpu_torch.ops.rng import uniform_fields
 
 
 def _gauss_band_matrix(size, sigma):
@@ -131,17 +131,18 @@ def weak_augment_apply(imgs, masks, dx, dy, draws, *, size, fillcolor):
     return img_out, mask_out
 
 
-def weak_augment_batch(imgs, masks, *, size, fillcolor, generator,
-                       host_generator):
+def weak_augment_batch(imgs, masks, *, size, fillcolor, generator, key):
     """Weak augmentation of a batch (augment.py:189-213): 2n uniform
-    fields from the RNG kernel (seeded from the CPU `host_generator`),
-    smoothed and scaled by 2S, then the composed chain with per-sample
-    draws from `generator` (on the batch's device)."""
+    fields from the RNG kernel keyed by `key` (a (2,) int32 tensor on the
+    batch's device, or an int seed: ops/rng.py:uniform_fields), smoothed
+    and scaled by 2S, then the composed chain with per-sample draws from
+    `generator` (on the batch's device)."""
     n = imgs.shape[0]
     dev = imgs.device
     masks = masks.to(torch.float32)
-    raw = uniform_batch(2 * n, size, generator=host_generator,
-                        device=dev) * 2.0 - 1.0
+    fields = uniform_fields(torch.empty((2 * n, size, size), device=dev),
+                            key)
+    raw = fields * 2.0 - 1.0
     sm = smooth_fields(raw)
     alpha = 2.0 * size
     draws = weak_draws(n, generator, dev)

@@ -31,9 +31,11 @@ from ust_run_tpu_torch.bench import label_channels
 from ust_run_tpu_torch.config import TrainConfig
 from ust_run_tpu_torch.engine.trainer import set_numerics
 from ust_run_tpu_torch.ops import augment, cutmix, fda
+from ust_run_tpu_torch.ops.rng import draw_seed
 from ust_run_tpu_torch.semisup.state import build_model, create_train_state
-from ust_run_tpu_torch.semisup.step import (HyperParams, ema_update,
-                                            step_fn, teacher_forward)
+from ust_run_tpu_torch.semisup.step import (HyperParams, ema_alpha,
+                                            ema_update, step_fn,
+                                            teacher_forward)
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils.device import card_line, resolve_device
 
@@ -117,14 +119,17 @@ def breakdown(cfg, device="cuda", n=20, skip_full=False):
         student_loss(state.student, stu_in, x["pl2"], x["mask2"],
                      hp).backward()
 
+    alpha = ema_alpha(state.step, hp.ema_decay)
+    alpha_beta = torch.tensor([alpha, np.float32(1.0) - alpha], device=dev)
+
     def optimizer_ema():
         state.optimizer.step()
-        ema_update(state.teacher, state.student, state.step, hp.ema_decay)
+        ema_update(state.teacher, state.student, *alpha_beta)
 
     stages = {
         "weak_aug_8img": lambda: augment.weak_augment_batch(
             x["img8"], x["lab8"], size=s, fillcolor=hp.fillcolor,
-            generator=gen, host_generator=host_gen),
+            generator=gen, key=draw_seed(host_gen)),
         "strong_aug_4img": lambda: augment.strong_augment_batch(
             x["img4"], min_v=hp.min_v, max_v=hp.max_v,
             blur_radius=hp.blur_radius, generator=gen),

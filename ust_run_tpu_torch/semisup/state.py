@@ -8,8 +8,13 @@ branches on a device value:
     epoch boundary (train.py:576).
 The step and epoch counters live on the host. Randomness comes from two
 explicit generators: `generator` on the state's device for per-sample
-draws, and the CPU `host_generator` for the RNG kernel's seeds and the
+draws, and the CPU `host_generator` for the RNG kernel's keys and the
 CutMix boxes.
+
+Every tensor of the state keeps its storage for the state's life: the
+step, the epoch reset and `engine/checkpoint.py:restore_state` write into
+it, so a CUDA graph of the step captured once (`graph`, semisup/step.py)
+reads and writes the live state on every replay.
 """
 
 import dataclasses
@@ -48,6 +53,10 @@ class LQCarry:
     conf: Any       # (1,S,S,2) | (1,S,S,1)
     valid: Any      # () bool
 
+    def fields(self):
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -61,6 +70,7 @@ class TrainState:
     choice_th: Any               # () f32 tensor, init 0.1 (train.py:561)
     generator: torch.Generator
     host_generator: torch.Generator
+    graph: Any = None            # the captured step (step.StepGraph), CUDA
 
 
 def _pl_shapes(q, s, multilabel, device):
@@ -73,11 +83,15 @@ def _pl_shapes(q, s, multilabel, device):
     return pl, conf
 
 
-def make_optimizer(params, base_lr):
-    """torch SGD(momentum=0.9, wd=1e-4) over all parameters (train.py:512);
-    `lr_at` sets the learning rate before each update."""
+def make_optimizer(params, base_lr, fused=False):
+    """torch SGD(momentum=0.9, wd=1e-4) over all parameters (train.py:512).
+    The step sets each update's learning rate as a 0-d tensor on the
+    parameters' device (`lr_at`'s value): on CUDA the fused update reads
+    it from device memory (`fused`), so no update waits on the host and a
+    captured update takes each replay's rate; on the CPU it is read as a
+    number."""
     return torch.optim.SGD(params, lr=base_lr, momentum=0.9,
-                           weight_decay=1e-4)
+                           weight_decay=1e-4, fused=fused or None)
 
 
 def lr_at(step, base_lr, max_iterations):
@@ -141,7 +155,8 @@ def create_train_state(hp, seed, device, student, teacher):
                  valid=torch.zeros((), dtype=torch.bool, device=device))
     return TrainState(
         step=0, epoch=0, student=student, teacher=teacher,
-        optimizer=make_optimizer(student.parameters(), hp.base_lr),
+        optimizer=make_optimizer(student.parameters(), hp.base_lr,
+                                 fused=torch.device(device).type == "cuda"),
         queue=queue, lq=lq,
         choice_th=torch.tensor(0.1, dtype=torch.float32, device=device),
         generator=torch.Generator(device=device).manual_seed(seed + 1),
@@ -149,8 +164,8 @@ def create_train_state(hp, seed, device, student, teacher):
 
 
 def reset_epoch(state, epoch):
-    """Epoch boundary: the LQ carry is re-Noned (train.py:576) and the
-    epoch feeds the hardness forcing (train.py:711-713)."""
+    """Epoch boundary: the LQ carry is re-Noned (train.py:576), in place,
+    and the epoch feeds the hardness forcing (train.py:711-713)."""
     state.epoch = epoch
-    state.lq.valid = torch.zeros_like(state.lq.valid)
+    state.lq.valid.zero_()
     return state

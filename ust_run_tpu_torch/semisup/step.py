@@ -11,7 +11,8 @@ drive each:
     forward [ulb_w, lb, ul, lu, s, lq] and the CE+Dice terms;
   * `apply_update(state, inp, loss, aux, hp)`: SGD, EMA, hardness, the
     curriculum queue and LQ carry, and the packed metrics.
-`step_fn` chains them with the backward pass.
+`step_fn` chains them with the backward pass; `multi_step` runs K steps
+in one call (the JAX package's make_train_multi_step, step.py:644-659).
 
 Each part takes an optional `mesh` (parallel.Mesh): N ranks then
 compute what one process computes with the same global batch. Everything
@@ -25,19 +26,31 @@ ranks and the gradients are summed before SGD (parallel/mesh.py).
 Without a mesh, nothing changes.
 
 Nothing in the step waits on the device: shapes are fixed, choices are
-`torch.where`, scalars that depend on the step count are computed on the
-host, and host draws (RNG kernel seeds, CutMix boxes) come from the CPU
-generator. Gradients flow only through `loss_terms`; pseudo-labels, the
-hardness and all state updates are computed without autograd.
+`torch.where`, and what the host supplies comes in one "feed" per step, a
+(F,) int32 tensor drawn by `draw_feed` (`feed_width`, `unpack_feed`): the
+RNG kernel's key, the CutMix boxes and the LQ fallback box, drawn from the
+CPU `host_generator` in that order, and the numbers of the host step
+count in float32 (the FDA degree, the consistency weight, the learning
+rate, EMA's alpha and 1 - alpha) with the epoch-0 hardness flag. The
+body (`build_inputs`, `loss_terms`, backward, `apply_update`) reads only
+device tensors and writes the state in place, so one captured CUDA graph
+of it serves every step: `multi_step` captures the step once per state,
+hyperparameters and corpus, and replays it K times per call, copying
+row k of the call's (K, ...) index and feed tensors into the graph's
+inputs before replay k and its metrics out after it. On the CPU, and
+with a mesh, `multi_step` runs K eager bodies. Gradients flow only
+through `loss_terms`; pseudo-labels, the hardness and all state updates
+are computed without autograd.
 """
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
 
-from ust_run_tpu_torch.ops import augment, cutmix, fda
-from ust_run_tpu_torch.semisup.state import CurriculumQueue, LQCarry, lr_at
+from ust_run_tpu_torch.ops import augment, cutmix, fda, rng
+from ust_run_tpu_torch.semisup.state import CurriculumQueue, lr_at
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils import metrics as M
 from ust_run_tpu_torch.utils import ramps
@@ -89,6 +102,90 @@ class HyperParams:
             fillcolor=p.fillcolor,
             blur_radius=augment.blur_radius_for(p.patch_size),
             lq_loss=cfg.lq_consistency)
+
+
+_FEED_FLOATS = ("degree", "cons_w", "lr", "alpha", "beta")
+
+
+def feed_width(hp):
+    """F, the int32 words of one step's feed: key 2, CutMix boxes 4 per
+    unlabelled sample, LQ fallback box 4, the float32 numbers (bit
+    patterns) and the epoch-0 flag."""
+    return 2 + 4 * hp.unlabel_bs + 4 + len(_FEED_FLOATS) + 1
+
+
+def ema_alpha(step, ema_decay):
+    """min(1 - 1/(step+1), decay) in float32 (train.py:87-93)."""
+    return min(np.float32(1.0) - np.float32(1.0) / (np.float32(step) + 1),
+               np.float32(ema_decay))
+
+
+def step_numbers(step, hp):
+    """The float32 numbers of host step `step`: FDA degree (train.py:629),
+    consistency weight (train.py:819-820), learning rate (train.py:854-856)
+    and EMA's alpha and 1 - alpha, as `_FEED_FLOATS` orders them."""
+    alpha = ema_alpha(step, hp.ema_decay)
+    return np.array([
+        np.float32(step) / np.float32(hp.max_iterations),
+        ramps.consistency_weight(hp.consistency, step, hp.max_iterations,
+                                 hp.consistency_rampup),
+        lr_at(step, hp.base_lr, hp.max_iterations),
+        alpha, np.float32(1.0) - alpha], np.float32)
+
+
+def pack_feed(hp, step, epoch, key=(0, 0), boxes=None, fallback=(0, 0, 0, 0)):
+    """One step's feed as a (F,) int32 numpy array."""
+    if boxes is None:
+        boxes = np.zeros((hp.unlabel_bs, 4), np.int32)
+    return np.concatenate([
+        np.asarray(key, np.int32), np.asarray(boxes, np.int32).reshape(-1),
+        np.asarray(fallback, np.int32),
+        step_numbers(step, hp).view(np.int32),
+        np.asarray([epoch == 0], np.int32)])
+
+
+def draw_feed(state, hp, step=None):
+    """The feed of the step at host count `step` (default the state's):
+    the RNG kernel's key, the CutMix boxes and the LQ fallback box drawn
+    from `state.host_generator` in that order (the order the step used
+    them in before it took a feed, so the same generators give the same
+    draws), and that step's numbers."""
+    host = state.host_generator
+    key = rng.draw_key(host)
+    draws = cutmix.HostDraws(host)
+    boxes = [cutmix.cutmix_box_params(draws, hp.patch, hp.cutmix_prob)
+             for _ in range(hp.unlabel_bs)]
+    fallback = cutmix.cutmix_box_params(draws, hp.patch, p=1.0)
+    return pack_feed(hp, state.step if step is None else step, state.epoch,
+                     key, boxes, fallback)
+
+
+def draw_feeds(state, hp, k):
+    """(k, F) int32: the feeds of the state's next k steps, drawn in
+    order (the epoch's, as no call crosses an epoch boundary)."""
+    return np.stack([draw_feed(state, hp, state.step + i) for i in range(k)])
+
+
+def unpack_feed(feed, hp):
+    """(F,) int32 tensor -> views of it: key (2,) int32, boxes (B, 4) and
+    fallback (4,) int32, the `_FEED_FLOATS` as 0-d float32 and
+    `force_hard` 0-d bool."""
+    b = hp.unlabel_bs
+    out = dict(key=feed[0:2], boxes=feed[2:2 + 4 * b].view(b, 4),
+               fallback=feed[2 + 4 * b:6 + 4 * b])
+    nums = feed[6 + 4 * b:6 + 4 * b + len(_FEED_FLOATS)].view(torch.float32)
+    out.update({name: nums[i] for i, name in enumerate(_FEED_FLOATS)})
+    out["force_hard"] = feed[-1] != 0
+    return out
+
+
+def host_to_device(array, device):
+    """A host numpy array -> tensor on `device`; to a CUDA device through
+    pinned memory without blocking."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def decode_mask(labels, dataset):
@@ -146,10 +243,6 @@ def _part_dice_parts(pl, target, hp):
 def _take(x, idx):
     """x[idx] for a 0-d or 1-d device index, without a host sync."""
     return torch.index_select(x, 0, idx.reshape(-1))
-
-
-def _scalar(value, device):
-    return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
 def metric_spec(hp):
@@ -211,13 +304,16 @@ def _shard(mesh, x, n):
 
 
 @torch.no_grad()
-def build_inputs(state, data, idx, hp, mesh=None):
+def build_inputs(state, data, idx, hp, mesh=None, *, feed):
     """Everything the loss consumes (step.py:253-398). `data`: the corpus
     on the device (uint8 lb_img (N1,S,S,C), lb_lab (N1,S,S,K), lb_dc,
-    ulb_* likewise); `idx`: {'lb_idx', 'ulb_idx'} int64 on the device."""
+    ulb_* likewise); `idx`: {'lb_idx', 'ulb_idx'} int64 on the device;
+    `feed`: this step's (F,) int32 feed on the device (`draw_feed`). The
+    unpacked feed rides along as `inp["feed"]`."""
     b_lb, b_ulb, s = hp.label_bs, hp.unlabel_bs, hp.patch
-    gen, host_gen = state.generator, state.host_generator
+    gen = state.generator
     dev = data["lb_img"].device
+    f = unpack_feed(feed, hp)
 
     # ------ on-device batch assembly from the resident corpus ------------
     lb_idx, ulb_idx = idx["lb_idx"], idx["ulb_idx"]
@@ -230,8 +326,7 @@ def build_inputs(state, data, idx, hp, mesh=None):
     # ------ weak (one pass over [labeled; unlabeled]) and strong ---------
     all_img255, all_lab = augment.weak_augment_batch(
         torch.cat([lb_img, ulb_img]), torch.cat([lb_lab, ulb_lab]),
-        size=s, fillcolor=hp.fillcolor, generator=gen,
-        host_generator=host_gen)
+        size=s, fillcolor=hp.fillcolor, generator=gen, key=f["key"])
     lb_img255, ulb_img255 = all_img255[:b_lb], all_img255[b_lb:]
     lb_lab, ulb_lab = all_lab[:b_lb], all_lab[b_lb:]
     ulb_s255 = augment.strong_augment_batch(
@@ -265,14 +360,12 @@ def build_inputs(state, data, idx, hp, mesh=None):
     cut_mask_choice = pool_conf[choice]
 
     # ------ FDA restyle toward the unlabeled batch (train.py:629-636) ----
-    degree = np.float32(state.step) / np.float32(hp.max_iterations)
     move255 = fda.fda_batch(augment.denormalize(mix_img), ulb_img255,
-                            float(degree), hp.LB, generator=gen)
+                            f["degree"], hp.LB, generator=gen)
     move_transx = augment.normalize(move255)
 
     # ------ cutmix boxes (train.py:639-642) -------------------------------
-    label_box = cutmix.cutmix_boxes(b_ulb, s, hp.cutmix_prob,
-                                    host_generator=host_gen, device=dev)
+    label_box = cutmix.box_masks(s, f["boxes"])
     img_box = label_box[..., None]
 
     # ------ teacher, one 3-group call (train.py:643-647) ------------------
@@ -315,20 +408,13 @@ def build_inputs(state, data, idx, hp, mesh=None):
     else:
         region = torch.maximum((lq.pl[0] > 0).to(torch.float32),
                                (lb_pick > 0).to(torch.float32))
-    fallback = cutmix.to_device(
-        cutmix.cutmix_box_params(cutmix.HostDraws(host_gen), s, p=1.0), dev)
-    label_box_lq = cutmix.all_cover_box(region, fallback)[None]
+    label_box_lq = cutmix.all_cover_box(region, f["fallback"])[None]
     img_box_lq = label_box_lq[..., None]
     lq_s = lq.img * (1 - img_box_lq) \
         + _take(lb_x_w, new_choice) * img_box_lq
     pseudo_label_lq = _mix_labels(lq.pl, _take(lb_mask, new_choice),
                                   label_box_lq, hp)
     mask_lq = torch.where(img_box_lq > 0, torch.ones_like(lq.conf), lq.conf)
-
-    # ------ consistency weight (train.py:819-820) -------------------------
-    cons_w = ramps.consistency_weight(hp.consistency, state.step,
-                                      hp.max_iterations,
-                                      hp.consistency_rampup)
 
     return dict(
         lb_x_w=lb_x_w, ulb_x_w=ulb_x_w, ulb_x_s=ulb_x_s,
@@ -339,8 +425,8 @@ def build_inputs(state, data, idx, hp, mesh=None):
         pseudo_label_lu=pseudo_label_lu, mask_lu=mask_lu,
         pseudo_label_w=pseudo_label_w, mask_w=mask_w,
         pseudo_label_lq=pseudo_label_lq, mask_lq=mask_lq,
-        lq_valid=lq.valid, cons_w=float(cons_w),
-        ratio_before=ratio_before, ratio_after=ratio_after)
+        lq_valid=lq.valid, cons_w=f["cons_w"],
+        ratio_before=ratio_before, ratio_after=ratio_after, feed=f)
 
 
 def loss_terms(state, inp, hp, mesh=None):
@@ -397,16 +483,16 @@ def loss_terms(state, inp, hp, mesh=None):
 
 
 @torch.no_grad()
-def ema_update(teacher, student, step, ema_decay):
-    """alpha = min(1 - 1/(step+1), decay); e = alpha*e + (1-alpha)*p over
-    the parameters (train.py:87-93, 851). The teacher's BN statistics come
-    from its own forward, not from the student."""
-    alpha = min(np.float32(1.0) - np.float32(1.0) / (np.float32(step) + 1),
-                np.float32(ema_decay))
+def ema_update(teacher, student, alpha, beta):
+    """e = alpha*e + beta*p over the parameters (train.py:87-93, 851),
+    alpha (`ema_alpha`) and beta = 1 - alpha 0-d float32 tensors on the
+    parameters' device: e*alpha, then e + p*beta in one rounding (an
+    addcmul, as the add with a host alpha it replaces). The teacher's BN
+    statistics come from its own forward, not from the student."""
     ema = list(teacher.parameters())
-    torch._foreach_mul_(ema, float(alpha))
-    torch._foreach_add_(ema, list(student.parameters()),
-                        alpha=float(np.float32(1.0) - alpha))
+    torch._foreach_mul_(ema, alpha)
+    torch._foreach_addcmul_(ema, list(student.parameters()),
+                            [beta] * len(ema))
 
 
 @torch.no_grad()
@@ -475,24 +561,25 @@ def update_queue(queue, choice_th, hardness, ulb_x_w, pseudo_label,
 @torch.no_grad()
 def apply_update(state, inp, loss, aux, hp, mesh=None):
     """After backward: SGD, EMA, hardness, queue, LQ carry, metrics
-    (step.py:464-530). Returns the packed metric vector on the device.
-    With `mesh`, the ranks' gradient shares are summed first."""
-    dev = loss.device
+    (step.py:464-530), written into the state's tensors in place; the
+    host step count goes up by one. Returns the packed metric vector on
+    the device. The step's numbers come from `inp["feed"]` (the unpacked
+    feed). With `mesh`, the ranks' gradient shares are summed first."""
+    f = inp["feed"]
     if mesh is not None:
         mesh.all_reduce_grads(state.student.parameters())
-    lr = lr_at(state.step, hp.base_lr, hp.max_iterations)
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = f["lr"]
     state.optimizer.step()
-    ema_update(state.teacher, state.student, state.step, hp.ema_decay)
+    ema_update(state.teacher, state.student, f["alpha"], f["beta"])
 
     pseudo_label, mask = inp["pseudo_label"], inp["mask"]
     ulb_x_w, ulb_mask = inp["ulb_x_w"], inp["ulb_mask"]
     stu_pl, _ = _pseudo_from_logits(aux["stu_logits_w"], hp)
     hardness = 1.0 - torch.mean(_part_dice_parts(stu_pl, pseudo_label, hp),
                                 dim=0)
-    if state.epoch == 0:                                         # :711-713
-        hardness = torch.ones_like(hardness)
+    hardness = torch.where(f["force_hard"], torch.ones_like(hardness),
+                           hardness)                             # :711-713
     lq_idx = torch.argmax(hardness)                              # :714-718
 
     new_queue, new_th, qmetrics = update_queue(
@@ -503,13 +590,12 @@ def apply_update(state, inp, loss, aux, hp, mesh=None):
     ulb_dice = _part_dice_parts(pseudo_label, ulb_mask, hp)
     lq_dice = _part_dice_parts(_take(pseudo_label, lq_idx),
                                _take(ulb_mask, lq_idx), hp)
-    cons_w = inp["cons_w"]
     metrics = dict(
         loss=loss.detach(), sup_loss=aux["sup_loss"].detach(),
         unsup_loss_ul=aux["unsup_ul"].detach(),
         unsup_loss_lu=aux["unsup_lu"].detach(),
         unsup_loss_s=aux["unsup_s"].detach(),
-        consistency_weight=_scalar(cons_w, dev), mask_ratio=torch.mean(mask),
+        consistency_weight=f["cons_w"], mask_ratio=torch.mean(mask),
         ratio_before_ensemble=inp["ratio_before"],
         ratio_after_ensemble=inp["ratio_after"],
         ulb_dice=torch.mean(ulb_dice, dim=1),
@@ -517,23 +603,163 @@ def apply_update(state, inp, loss, aux, hp, mesh=None):
         hardness_mean=torch.mean(hardness),
         cur_simple_num=torch.sum(simple_idx.to(torch.float32)),
         simple_flags=simple_idx.to(torch.float32),
-        queue_count=new_queue.count, choice_th=new_th,
-        lr=_scalar(lr, dev), **qmetrics)
+        queue_count=new_queue.count, choice_th=new_th, lr=f["lr"],
+        **qmetrics)
+    packed = pack_metrics(metrics, hp)
 
-    state.lq = LQCarry(img=_take(ulb_x_w, lq_idx),
-                       pl=_take(pseudo_label, lq_idx),
-                       conf=_take(mask, lq_idx),
-                       valid=torch.ones((), dtype=torch.bool, device=dev))
-    state.queue = new_queue
-    state.choice_th = new_th
+    lq = state.lq
+    lq.img.copy_(_take(ulb_x_w, lq_idx))
+    lq.pl.copy_(_take(pseudo_label, lq_idx))
+    lq.conf.copy_(_take(mask, lq_idx))
+    lq.valid.fill_(True)
+    for name, t in state.queue.fields().items():
+        t.copy_(getattr(new_queue, name))
+    state.choice_th.copy_(new_th)
     state.step += 1
-    return pack_metrics(metrics, hp)
+    return packed
 
 
-def step_fn(state, data, idx, hp, mesh=None):
-    """One training step; returns the packed metrics (on the device)."""
-    inp = build_inputs(state, data, idx, hp, mesh)
-    state.optimizer.zero_grad(set_to_none=True)
+def step_body(state, data, idx, feed, hp, mesh=None):
+    """One step from its index batch and feed (after the gradients were
+    set to None); returns the packed metrics (on the device)."""
+    inp = build_inputs(state, data, idx, hp, mesh, feed=feed)
     loss, aux = loss_terms(state, inp, hp, mesh)
     loss.backward()
     return apply_update(state, inp, loss, aux, hp, mesh)
+
+
+def _eager_step(state, data, idx, feed, hp, mesh=None):
+    state.optimizer.zero_grad(set_to_none=True)
+    return step_body(state, data, idx, feed, hp, mesh)
+
+
+def step_fn(state, data, idx, hp, mesh=None):
+    """One training step: its feed drawn and copied to the device, then
+    the body; returns the packed metrics (on the device)."""
+    feed = host_to_device(draw_feed(state, hp), data["lb_img"].device)
+    return _eager_step(state, data, idx, feed, hp, mesh)
+
+
+# Counts of the CUDA graph path (plain counts, reset by callers that want
+# to show a run went through it): graphs captured, and replays.
+graph_counts = dict(captures=0, replays=0)
+
+
+def reset_counts():
+    """Zero rng.launches and `graph_counts`."""
+    rng.launches = 0
+    graph_counts.update(dict.fromkeys(graph_counts, 0))
+
+
+class StepGraph:
+    """One captured step: the CUDA graph, its static index and feed inputs
+    and metric output, what it was captured for (`key`), the addresses of
+    the state's tensors it reads and writes, and the RNG launches one
+    replay runs (recorded at capture, added to rng.launches per replay)."""
+
+    def __init__(self, key, graph, idx, feed, metrics, carried, rng_per):
+        self.key, self.graph = key, graph
+        self.idx, self.feed, self.metrics = idx, feed, metrics
+        self.carried, self.rng_per = carried, rng_per
+
+    def replay(self, state, idx, feed):
+        """One step: `idx` and `feed` into the static inputs, the replay;
+        returns the static metrics (valid until the next replay)."""
+        self.feed.copy_(feed)
+        for name, t in self.idx.items():
+            t.copy_(idx[name])
+        self.graph.replay()
+        state.step += 1
+        graph_counts["replays"] += 1
+        rng.launches += self.rng_per
+        return self.metrics
+
+
+def _graph_key(data, hp):
+    return hp, tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
+                     for k, v in sorted(data.items()))
+
+
+def _carried(state):
+    """Addresses of every state tensor a step reads and writes."""
+    ts = [*state.student.parameters(), *state.student.buffers(),
+          *state.teacher.parameters(), *state.teacher.buffers(),
+          *state.queue.fields().values(), *state.lq.fields().values(),
+          state.choice_th]
+    ts += [st["momentum_buffer"] for st in state.optimizer.state.values()
+           if st.get("momentum_buffer") is not None]
+    return tuple(t.data_ptr() for t in ts)
+
+
+def _capture(state, data, idx, feed, hp, first_out):
+    """The step captured as a CUDA graph. Runs the call's first step
+    eagerly first (`idx`, `feed`: its rows; metrics into `first_out`), on
+    the capture's side stream, as the warm-up that creates what the step
+    makes on first use (momentum buffers, cached matrices, library
+    handles and workspaces); then records the body, which runs nothing.
+    The state's device generator is registered, so each replay advances
+    it as the eager step would; the gradients are set to None first, so
+    the backward's gradients are the graph's own, reused by each
+    replay. A capture that fails raises: there is no eager fallback."""
+    dev = feed.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        first_out.copy_(_eager_step(state, data, idx, feed, hp))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    static_idx = {k: torch.empty_like(v) for k, v in idx.items()}
+    static_feed = torch.empty_like(feed)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(state.generator)
+    state.optimizer.zero_grad(set_to_none=True)
+    step, captured = state.step, rng.captured
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            metrics = step_body(state, data, static_idx, static_feed, hp)
+    finally:
+        state.step = step                 # the capture ran no step
+    rng_per = rng.captured - captured
+    graph_counts["captures"] += 1
+    return StepGraph(_graph_key(data, hp), graph, static_idx, static_feed,
+                     metrics, _carried(state), rng_per)
+
+
+_mesh_noted = False
+
+
+def multi_step(state, data, idxs, feeds, hp, mesh=None):
+    """K steps in one call (make_train_multi_step): `idxs` {'lb_idx',
+    'ulb_idx'} (K, B) int64 and `feeds` (K, F) int32 (`draw_feeds`), on
+    the state's device; returns the (K, M) packed metrics on the device.
+    On the CPU, or with `mesh`, K eager bodies. On a CUDA device the step
+    is captured at the first call for this state, hyperparameters and
+    corpus (that call's first step runs eagerly, see `_capture`) and
+    replayed for every other step; a graph whose state tensors moved
+    raises."""
+    global _mesh_noted
+    k = feeds.shape[0]
+
+    def rows(i):
+        return {name: v[i] for name, v in idxs.items()}
+
+    if feeds.device.type != "cuda" or mesh is not None:
+        if mesh is not None and not _mesh_noted:
+            _mesh_noted = True
+            logging.info("K-step calls on a mesh run K eager steps (no "
+                         "CUDA graph)")
+        return torch.stack([_eager_step(state, data, rows(i), feeds[i], hp,
+                                        mesh) for i in range(k)])
+    out = torch.empty((k, sum(n for _, n in metric_spec(hp))),
+                      device=feeds.device)
+    g, start = state.graph, 0
+    if g is None or g.key != _graph_key(data, hp):
+        state.graph = None
+        state.graph = g = _capture(state, data, rows(0), feeds[0], hp,
+                                   out[0])
+        start = 1
+    if _carried(state) != g.carried:
+        raise RuntimeError("a state tensor the captured step reads has "
+                           "moved (rebound instead of written in place)")
+    for i in range(start, k):
+        out[i].copy_(g.replay(state, rows(i), feeds[i]))
+    return out
