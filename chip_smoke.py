@@ -37,7 +37,10 @@ Phases, one line each (or a few); any failure exits non-zero:
        GB/s;
   4. reference: the port's UNet train forward and gradients on the card
      against the same module on the CPU (float32, TF32 off) at a small
-     input;
+     input; then the fused SGD: one SGD(fused=True) update of the UNet's
+     parameters on the card (the step's route there) against the CPU's
+     unfused update from equal parameters, gradients, momentum and lr,
+     within SGD_ULP float32 ulp;
   5. main path: the port's trainer on a synthetic fundus corpus at full
      width (UNet 64->1024, 3x256^2, batch 4+4) at its default
      --unroll_steps 10: a warm-up call of 3 steps (the first runs eagerly,
@@ -86,10 +89,14 @@ Phases, one line each (or a few); any failure exits non-zero:
      MNMS (1x288^2, 4 classes) through the `train_mnms` entry for 3
      steps and its epoch-end evaluation and checkpoint;
  13. data parallel (ust_run_tpu_torch.parallel), fundus at phase 5's
-     full width: (a) a one-rank NCCL process group, 3 steps whose state
-     and metrics must be bit-equal to the plain trainer's from the same
-     seed, then 10 steps timed under the sync debug mode (img/s beside
-     phase 5's); (b) two ranks spawned on cuda:0 under Gloo, 3 steps: the
+     full width: (a) a one-rank NCCL process group at the default
+     --unroll_steps 10, the step captured with its collectives as one
+     CUDA graph: 33 steps (a capturing call of 3, 30 replays under the
+     sync debug mode) whose metric rows and state must be bit-equal to 33
+     eager NCCL steps and to the graph path with no process group from
+     the same seed, uniform_rng once per step (img/s beside phase 5's;
+     with --profile, the host's idle share of the NCCL step, eager and on
+     the graph, each profiled in a fresh process as `--ab` runs); (b) two ranks spawned on cuda:0 under Gloo, 3 steps: the
      replicas bit-equal (a max-abs-difference all-reduce reads 0), every
      loss finite, uniform_rng once per step per rank, the first step's
      losses and the state after 3 steps within DP_LOSS_RTOL and
@@ -152,13 +159,14 @@ Phases, one line each (or a few); any failure exits non-zero:
      fundus at full width, bf16, 33 steps on the graph path (a capturing
      call of 3, then 3 calls of 10 replays) against 33 eager steps of a
      trainer from the same seed: every metric row and state tensor
-     bit-equal; deeplabv2_r50 (float32) 3 steps, a capturing call of one
-     step and two replays, each replayed step against the same step run
-     twice eagerly from the state before it (restored in place, which the
-     graph must survive): the loss terms within ZOO_LOSS_RTOL of the
-     step's loss and the state within ZOO_UPDATE_SHARE of the step's
-     update, printed beside the two eager runs' own distances; (c) the replays under the sync debug mode; (d) peak GiB,
-     graph against eager; and a torch.profiler window (CUDA activity) of
+     bit-equal; the zoo in float32 (ZOO_PAIRS): deeplabv2_r50 and unet2d
+     a capturing call of one step and two replays, each replayed step
+     against the same step run twice eagerly from the state before it
+     (restored in place, which the graph must survive), deeplabv2 (R101)
+     one replayed step against one eager run: every metric row and state
+     tensor bit-equal (the zoo's step is run-to-run deterministic under
+     --deterministic 1); (c) the replays under the sync debug mode; (d)
+     peak GiB, graph against eager; and a torch.profiler window (CUDA activity) of
      10 replays holding 10 uniform_fields_kernel by name (9: the profiler
      can miss a kernel);
  18. RNG timing: the uniform-field RNG's (its key on the card) and
@@ -174,7 +182,8 @@ TREE (a checkout of the repo, e.g. `git archive <commit>` unpacked under
 the ignored `_ab/`), in the order given, a fresh process puts TREE's
 package first on the path and times phase 5's trainer over AB_STEPS
 steps (`TREE@nccl`: on a one-rank NCCL process group, for a tree that
-has ust_run_tpu_torch.parallel), with `--profile FILE` also phase 6's
+has ust_run_tpu_torch.parallel; `TREE@nccl-eager`: the same at
+--unroll_steps 1), with `--profile FILE` also phase 6's
 profile (to FILE's stem + `_<i>.json`, with the operators that take
 the most host time). One JSON line per run. Interleave the trees (A B B
 A) to compare them within one call.
@@ -227,6 +236,11 @@ DP_UPDATE_SHARE = 0.05
 # 4.0e-3 with the mean of the ranks' local losses planted; the phase
 # plants it as a control, which must miss this bar)
 DP_GRAD_SHARE = 1e-3
+# the card's fused SGD update against the CPU's unfused one: float32 ulp of
+# the largest operand of the last operation (the momentum: 0.9 m and the
+# decayed gradient; the parameter: p and lr x momentum); each side rounds
+# at most twice along the way, FMA or not
+SGD_ULP = 4
 N_TEST = 8                        # synthetic test images per domain
 LOSSES = ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
           "unsup_loss_s")
@@ -713,6 +727,77 @@ def phase_reference(card):
     print(f"[reference] UNet (6x64^2x3, 3 BN groups, f32, TF32 off) card "
           f"vs CPU: forward max |d| {fwd_err:.2e}, out-conv gradients max "
           f"|d|/max|g| {grad_err:.2e} | {card}", flush=True)
+
+
+def sgd_update(params, grads, bufs, lr, fused):
+    """One update of the step's optimizer (make_optimizer: momentum 0.9,
+    weight decay 1e-4) over copies of `params` from momentum `bufs` and
+    gradients `grads`, the learning rate a 0-d tensor on their device as
+    apply_update sets it. Returns (parameters, momentum) after it."""
+    import torch
+    from ust_run_tpu_torch.semisup.state import make_optimizer
+    ps = [p.clone().requires_grad_() for p in params]
+    opt = make_optimizer(ps, 0.03, fused=fused)
+    for p, g, b in zip(ps, grads, bufs):
+        p.grad = g.clone()
+        opt.state[p]["momentum_buffer"] = b.clone()
+    for group in opt.param_groups:
+        group["lr"] = torch.tensor(lr, device=params[0].device)
+    opt.step()
+    return ([p.detach() for p in ps],
+            [opt.state[p]["momentum_buffer"] for p in ps])
+
+
+def ulp_error(got, want, scale):
+    """max |got - want| in float32 ulp of `scale` (elementwise, the
+    largest operand of the last operation that made `want`)."""
+    import numpy as np
+    d = np.abs(got.double().cpu().numpy() - want.double().numpy())
+    ulp = np.spacing(np.abs(scale.numpy()).astype(np.float32))
+    return float((d / ulp).max())
+
+
+def phase_fused_sgd(card):
+    """The card's fused SGD update (SGD(fused=True), the step's route on
+    CUDA) against the CPU's unfused one, which the CPU tests hold to JAX:
+    one update of the fundus UNet's 31.0M parameters from equal
+    parameters, gradients, momentum and learning rate (float32), each
+    result within SGD_ULP float32 ulp of the CPU's."""
+    import numpy as np
+    import torch
+    from ust_run_tpu_torch.models import UNet
+    from ust_run_tpu_torch.semisup.state import lr_at
+    params = [p.detach() for p in
+              UNet(3, 2).init_weights_(torch.Generator().manual_seed(0))
+              .parameters()]
+    r = np.random.RandomState(0)
+    grads = [torch.from_numpy(r.normal(0, 1e-2, p.shape).astype(np.float32))
+             for p in params]
+    bufs = [torch.from_numpy(r.normal(0, 1e-2, p.shape).astype(np.float32))
+            for p in params]
+    lr = lr_at(1000, 0.03, 30000)
+    want_p, want_b = sgd_update(params, grads, bufs, lr, fused=False)
+    got_p, got_b = sgd_update([p.cuda() for p in params],
+                              [g.cuda() for g in grads],
+                              [b.cuda() for b in bufs], lr, fused=True)
+    err_b = err_p = 0.0
+    for p, g, b, wp, wb, gp, gb in zip(params, grads, bufs, want_p, want_b,
+                                       got_p, got_b):
+        # momentum = 0.9 m + (g + 1e-4 p); parameter = p - lr momentum
+        err_b = max(err_b, ulp_error(gb, wb, torch.maximum(
+            (0.9 * b).abs(), (g + 1e-4 * p).abs())))
+        err_p = max(err_p, ulp_error(gp, wp, torch.maximum(
+            p.abs(), (lr * wb).abs())))
+    if max(err_b, err_p) > SGD_ULP:
+        fail(f"fused SGD on the card against the CPU's: momentum "
+             f"{err_b:.2f} ulp, parameters {err_p:.2f} ulp (bar {SGD_ULP})")
+    print(f"[fused sgd] one SGD(fused=True) update on the card (momentum "
+          f"0.9, weight decay 1e-4, lr {lr:.6g} a 0-d device tensor) of the "
+          f"UNet's {sum(p.numel() for p in params) / 1e6:.1f}M float32 "
+          f"parameters against the CPU's unfused update from equal "
+          f"parameters, gradients and momentum: worst momentum "
+          f"{err_b:.2f} ulp, worst parameter {err_p:.2f} ulp (bar "
+          f"{SGD_ULP}) | {card}", flush=True)
 
 
 def phase_main_path(card, work, profile_out=None):
@@ -1502,57 +1587,99 @@ def first_losses_error(metrics, ref_metrics):
                / max(abs(float(ref_metrics[0][k])), 1e-30) for k in LOSSES)
 
 
-def phase_data_parallel(card, work, main_img_s):
+def nccl_world1(card, work, root, main_img_s, profile_out=None):
+    """Phase 13 (a): one rank under NCCL at the default --unroll_steps 10,
+    the step and its collectives captured as one CUDA graph and replayed,
+    against the same steps as eager NCCL steps and against the graph path
+    with no process group, bit for bit; with `profile_out`, the host's idle
+    share of the NCCL step, on the graph and eager, each profiled in a
+    fresh process (`--ab-run`). Returns (uniform_rng launches of the
+    graph run, its config)."""
+    from ust_run_tpu_torch import parallel
+    plain_tr, plain = unroll_run(root, work, "dp_plain", [], *UNROLL_STEPS)
+    plain_tr.close()
+    del plain_tr
+    free_card()
+    mesh = parallel.init_distributed(
+        backend="nccl", device="cuda:0", rank=0, world_size=1,
+        init_method="file://" + os.path.join(work, "dp_store_a"))
+    runs = {}
+    try:
+        for mode, extra in (("graph", []), ("eager", ["--unroll_steps",
+                                                      "1"])):
+            trainer, runs[mode] = unroll_run(root, work, f"dp_nccl_{mode}",
+                                             extra, *UNROLL_STEPS, mesh=mesh)
+            cfg = trainer.cfg
+            trainer.close()
+            del trainer
+            free_card()
+    finally:
+        mesh.close()
+    idle = {}
+    if profile_out:     # in fresh processes, as --ab runs: more profiler
+        # windows in this process can leave a later phase's trace short of
+        # a kernel
+        for mode, spec in (("graph", "nccl"), ("eager", "nccl-eager")):
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--ab-run",
+                 f"{HERE}@{spec}", "--profile",
+                 f"{os.path.splitext(profile_out)[0]}_{spec}.json"],
+                capture_output=True, text=True)
+            if out.returncode:
+                fail(f"(a) the profiled NCCL run ({spec}) exited "
+                     f"{out.returncode}: {out.stdout[-1500:]} "
+                     f"{out.stderr[-1500:]}")
+            run = json.loads(out.stdout.strip().splitlines()[-1])
+            idle[mode] = 1.0 - (run["profile"]["device_kernel_ms_per_step"]
+                                / run["ms_step"])
+    steps = sum(UNROLL_STEPS)
+    graph, eager = runs["graph"], runs["eager"]
+    for label, other in (("eager NCCL steps", eager),
+                         ("the graph path with no process group", plain)):
+        diff_rows, diff_state = rows_and_state_diff(graph, other)
+        if diff_rows or diff_state:
+            fail(f"(a) world 1 under NCCL on the graph against {label}: "
+                 f"rows {diff_rows[:5]}, state {diff_state[:5]} differ")
+    check_losses(graph[0], "world-1 NCCL graph")
+    counts = (graph[4], eager[4], graph[5]["captures"], graph[5]["replays"],
+              eager[5]["replays"])
+    if counts != (steps, steps, 1, steps - 1, 0):
+        fail(f"(a) world-1 NCCL uniform_rng runs (graph, eager), captures, "
+             f"replays (graph, eager): {counts} in {steps} steps")
+    launches_a = graph[4]
+    img = cfg.label_bs + cfg.unlabel_bs
+    print(f"[data parallel] (a) world 1 under NCCL, fundus UNet 64->1024, "
+          f"3x256^2, batch 4+4, bf16 autocast, {steps} steps at "
+          f"--unroll_steps 10 (1 capture of the step with its NCCL "
+          f"collectives, {graph[5]['replays']} replays): every metric row "
+          f"and {len(list(state_leaves(graph[1])))} state tensors bit-equal "
+          f"to {steps} eager NCCL steps and to the graph path with no "
+          f"process group; {UNROLL_STEPS[1]} replays under the sync debug "
+          f"mode at {img / graph[2] * 1e3:.2f} img/s ({graph[2]:.1f} "
+          f"ms/step; eager NCCL {img / eager[2] * 1e3:.2f}, no process group "
+          f"{img / plain[2] * 1e3:.2f}; phase 5: {main_img_s:.2f}), peak "
+          f"{graph[3]:.2f} GiB; uniform_rng runs {launches_a} / {eager[4]}"
+          + ("" if not idle else
+             f"; host idle share of the step {idle['eager']:.3f} eager, "
+             f"{idle['graph']:.3f} on the graph")
+          + f" | {card}", flush=True)
+    return launches_a, cfg
+
+
+def phase_data_parallel(card, work, main_img_s, profile_out=None):
     """The trainer on a data-parallel mesh (ust_run_tpu_torch.parallel),
-    full-width fundus as in phase 5: (a) world 1 under NCCL against the
-    plain trainer, (b) two Gloo ranks sharing cuda:0 against world 1,
-    (c) two Gloo ranks on deeplabv2_r50 and a sharded evaluation. Returns
-    the RNG kernel's launches in each run."""
+    full-width fundus as in phase 5: (a) world 1 under NCCL, the K-step
+    call's CUDA graph against eager NCCL steps and the graph path with no
+    process group (`nccl_world1`), (b) two Gloo ranks sharing cuda:0
+    against world 1, (c) two Gloo ranks on deeplabv2_r50 and a sharded
+    evaluation. Returns the RNG kernel's launches in each run."""
     import numpy as np
     import torch
-    from ust_run_tpu_torch import parallel
 
     root = os.path.join(work, "fundus")
     init, ref_metrics, ref, ref_grad, _ = world1_references(root, work)
 
-    # (a) one rank under NCCL: the plain trainer's state, bit for bit
-    mesh = parallel.init_distributed(
-        backend="nccl", device="cuda:0", rank=0, world_size=1,
-        init_method="file://" + os.path.join(work, "dp_store_a"))
-    try:
-        trainer, cfg = make_trainer(
-            train_argv("fundus", root, work, "dp_nccl"), mesh)
-        reset_launches()
-        warm = trainer.train_steps(DP_STEPS)
-        got = state_tensors(trainer.state)
-        unequal = [k for k in ref if not torch.equal(got[k], ref[k])]
-        unequal += [f"step {i + 1} {k}" for i, (m, r) in
-                    enumerate(zip(warm, ref_metrics)) for k in m
-                    if not np.array_equal(m[k], r[k])]
-        del got
-        metrics, dt, peak_gib = step_window(trainer, 0, TIMED_STEPS)
-        launches_a = rng_launches()
-        trainer.close()
-        del trainer
-    finally:
-        mesh.close()
-    free_card()
-    if unequal:
-        fail(f"world 1 under NCCL differs from the plain trainer after "
-             f"{DP_STEPS} steps at {len(unequal)} tensors/metrics: "
-             f"{unequal[:6]}")
-    check_losses(warm + metrics, "world-1 NCCL")
-    if launches_a != DP_STEPS + TIMED_STEPS:
-        fail(f"uniform_rng launched {launches_a} times in "
-             f"{DP_STEPS + TIMED_STEPS} world-1 steps")
-    img_s = TIMED_STEPS * (cfg.label_bs + cfg.unlabel_bs) / dt
-    print(f"[data parallel] (a) world 1 under NCCL, fundus UNet 64->1024, "
-          f"3x256^2, batch 4+4, bf16 autocast: {DP_STEPS}+{TIMED_STEPS} "
-          f"steps, state and metrics after {DP_STEPS} steps bit-equal to "
-          f"the plain trainer's ({len(ref)} tensors); {img_s:.2f} img/s "
-          f"(phase 5, no process group: {main_img_s:.2f}), peak "
-          f"{peak_gib:.2f} GiB; uniform_rng launches {launches_a}; no "
-          f"host-device sync in the timed steps | {card}", flush=True)
+    launches_a, cfg = nccl_world1(card, work, root, main_img_s, profile_out)
 
     # (b) and (c): two Gloo ranks sharing cuda:0, each fundus run from the
     # same seed; the planted ones average the ranks' local losses
@@ -2092,16 +2219,15 @@ def phase_instruments(card, work):
 
 UNROLL_STEPS = (3, 30)        # phase 17 (b): a capturing call, then replays
 PROFILED_REPLAYS = 10         # phase 17: replays in the profiler's window
-# phase 17 (b): deeplabv2_r50, each replayed step against the same step run
-# eagerly from the same state: the loss terms as a share of the step's loss
-# (equal on the H100) and the state after it as a share of the step's
-# update. The float32 DeepLab backward is not run-to-run deterministic even
-# eagerly (bilinear upsampling's backward adds with atomics): two eager
-# runs of one step lie 2.7e-06 and 3.5e-06 apart as a share of the update,
-# as the graph does (H100, PERF.md; the phase prints both), so the bar is
-# above that spread and far below a step's own size
-ZOO_LOSS_RTOL = 1e-5
-ZOO_UPDATE_SHARE = 1e-4
+# phase 17 (b): the zoo, float32, each replayed step against the same step
+# run eagerly from the same state, twice (R101 once): every metric row and
+# state tensor equal. Under --deterministic 1 the zoo's step has no
+# operator whose sums change from run to run (its resizes are matrix
+# products, cuDNN runs deterministic algorithms), as the UNet's has had
+# none since its per-group means became an averaging-matrix product
+ZOO_PAIRS = (("deeplabv2_r50", SHORT_STEPS - 1, 2),
+             ("unet2d", SHORT_STEPS - 1, 2),
+             ("deeplabv2", 1, 1))     # (model, replayed steps, eager runs)
 
 
 def replay_fields(key_of):
@@ -2138,14 +2264,16 @@ def keyed(fields):
                for f, s in zip(fields, (RNG_SEED, RNG_SEED + 1)))
 
 
-def unroll_run(root, work, tag, extra, first, rest):
-    """A fresh trainer's `first` steps, then `rest` under the sync debug
-    mode. Returns (metric rows, host state, ms per step of the rest,
-    peak GiB, uniform_rng launches run, graph counts)."""
+def unroll_run(root, work, tag, extra, first, rest, mesh=None):
+    """A fresh trainer's `first` steps (on `mesh` if given), then `rest`
+    under the sync debug mode. Returns (the trainer, (metric rows, host
+    state, ms per step of the rest, peak GiB, uniform_rng launches run,
+    graph counts))."""
     import torch
     from ust_run_tpu_torch.engine import checkpoint as ckpt
     from ust_run_tpu_torch.semisup import step
-    trainer, _ = make_trainer(train_argv("fundus", root, work, tag, *extra))
+    trainer, _ = make_trainer(train_argv("fundus", root, work, tag, *extra),
+                              mesh)
     free_card()
     reset_launches()
     rows = trainer.train_steps(first)
@@ -2186,29 +2314,22 @@ def rows_and_state_diff(a, b):
     return rows, state
 
 
-def loss_rel_diff(a, b):
-    """The largest difference of the loss terms of two runs, each as a
-    share of its step's total loss (a term near 0, as unsup_loss_s before
-    the ramp, has no relative precision of its own)."""
-    return max(abs(float(x[k]) - float(y[k])) / abs(float(y["loss"]))
-               for x, y in zip(a[0], b[0]) for k in LOSSES)
-
-
-def r50_graph_vs_eager(root, work):
-    """deeplabv2_r50 at --unroll_steps 10, SHORT_STEPS steps: a capturing
-    call of one step, then calls of one replay; each replayed step is
-    also run twice as an eager step from the state before it (the
+def zoo_graph_vs_eager(root, work, model, replays, eager_runs):
+    """--model `model` at --unroll_steps 10: a capturing call of one step,
+    then `replays` calls of one replay; each replayed step is also run
+    `eager_runs` times as an eager step from the state before it (the
     trainer's state restored in place, the samplers too), and the trainer
-    goes on from the replay's state. Returns (for each replayed step,
-    graph against the first eager run: its loss terms' distance as a share
-    of its loss and the states' (student, teacher, momentum) as a share of
-    the step's update; the same for the two eager runs; peak GiB)."""
+    goes on from the replay's state. Returns (for each replayed step, the
+    metric rows and state tensors of each eager run that differ from the
+    replay's; peak GiB)."""
+    import numpy as np
     import torch
     from ust_run_tpu_torch.nan_replay import restore
     from ust_run_tpu_torch.semisup import step as step_mod
 
-    trainer, _ = make_trainer(train_argv("fundus", root, work, "r50",
-                                         "--model", "deeplabv2_r50"))
+    trainer, _ = make_trainer(train_argv(
+        "fundus", root, work, model, "--model", model, "--pretrained_root",
+        os.path.join(work, "no_pretrained")))
     free_card()
 
     def back_to(payload):
@@ -2217,39 +2338,33 @@ def r50_graph_vs_eager(root, work):
 
     def step(unroll):
         trainer.unroll = unroll
-        return trainer.train_steps(1)
-
-    def host_state():
-        return {k: v.detach().to("cpu", copy=True)
-                for k, v in state_tensors(trainer.state).items()}
+        rows = trainer.train_steps(1)
+        check_losses(rows, f"{model} unroll {unroll}")
+        return rows, {k: v.detach().to("cpu", copy=True)
+                      for k, v in state_tensors(trainer.state).items()}
 
     reset_launches()
-    check_losses(step(10), "r50 capturing call")
-    gaps, spreads = [], []
-    for _ in range(SHORT_STEPS - 1):
-        before, start = trainer.host_payload(trainer.state.epoch), host_state()
-        runs = [(step(10), host_state())]
+    step(10)
+    diffs = []
+    for _ in range(replays):
+        before = trainer.host_payload(trainer.state.epoch)
+        graph = step(10)
         after = trainer.host_payload(trainer.state.epoch)
-        for _ in range(2):
+        for _ in range(eager_runs):
             back_to(before)
-            runs.append((step(1), host_state()))
+            eager = step(1)
+            diffs.append(
+                [k for k in graph[0][0] if not np.array_equal(
+                    graph[0][0][k], eager[0][0][k])]
+                + [k for k in graph[1] if not torch.equal(graph[1][k],
+                                                          eager[1][k])])
         back_to(after)
-        for rows, _ in runs:
-            check_losses(rows, "r50 unroll")
-        (graph, g_state), (eager, e_state), (eager2, e2_state) = runs
-        gaps.append((loss_rel_diff((graph,), (eager,)),
-                     max(update_share(g_state, e_state, start, part)
-                         for part in ("student.", "teacher.", "momentum."))))
-        spreads.append((loss_rel_diff((eager2,), (eager,)),
-                        max(update_share(e2_state, e_state, start, part)
-                            for part in ("student.", "teacher.",
-                                         "momentum."))))
-    if step_mod.graph_counts["captures"] != 1 \
-            or step_mod.graph_counts["replays"] != SHORT_STEPS - 1:
-        fail(f"(b) r50 graph counts {step_mod.graph_counts}")
+    counts = step_mod.graph_counts
+    if (counts["captures"], counts["replays"]) != (1, replays):
+        fail(f"(b) {model} graph counts {counts}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     trainer.close()
-    return gaps, spreads, peak
+    return diffs, peak
 
 
 def phase_unroll(card, work):
@@ -2259,20 +2374,15 @@ def phase_unroll(card, work):
     set, and inside a captured graph two replays with two keys draw those
     keys' fields, while the control (a key tensor made at capture and
     never rewritten, as a key passed by value would be) must fail that
-    check; (b)
-    fundus at full width, bf16, 33 steps on the graph path (a call of 3
-    capturing it, 3 calls of 10 replays) against 33 eager steps of a
-    trainer from the same seed: metric rows and state bit-equal; 3 steps
-    of deeplabv2_r50 (float32; `r50_graph_vs_eager`), each replayed step
-    against the same step run eagerly from the same state, loss terms
-    within ZOO_LOSS_RTOL of the step's loss and the state within
-    ZOO_UPDATE_SHARE of the step's update, beside two eager runs' own
-    distances; (c) the replays
-    under the sync debug mode; (d) peak GiB, graph against eager; and a
-    profiler window of PROFILED_REPLAYS replays holding as many
+    check; (b) fundus at full width, bf16, 33 steps on the graph path (a
+    call of 3 capturing it, 3 calls of 10 replays) against 33 eager steps
+    of a trainer from the same seed: metric rows and state bit-equal;
+    then the zoo (ZOO_PAIRS, `zoo_graph_vs_eager`), each replayed step
+    bit-equal to the same step run eagerly from the same state; (c) the
+    replays under the sync debug mode; (d) peak GiB, graph against eager;
+    and a profiler window of PROFILED_REPLAYS replays holding as many
     uniform_rng kernels by name (or one fewer: the profiler can miss a
-    kernel). Returns the launches that ran in (b)'s graph
-    run."""
+    kernel). Returns the launches that ran in (b)'s graph run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ust_run_tpu_torch.data.synthetic import generate
@@ -2346,20 +2456,19 @@ def phase_unroll(card, work):
           f"{card}", flush=True)
     del graph, eager
 
-    gaps, spreads, peak_r50 = r50_graph_vs_eager(root, work)
-    if max(g[0] for g in gaps) > ZOO_LOSS_RTOL \
-            or max(g[1] for g in gaps) > ZOO_UPDATE_SHARE:
-        fail(f"(b) deeplabv2_r50 graph against eager (loss share, update "
-             f"share): {gaps}, bars {ZOO_LOSS_RTOL}, {ZOO_UPDATE_SHARE}")
-    print(f"[unroll] (b) deeplabv2_r50, float32, {SHORT_STEPS} steps (a "
-          f"capturing call of 1, then a replay each, every replayed step "
-          f"also run twice eagerly from the state before it, restored in "
-          f"place): graph against eager, loss terms as a share of the loss "
-          f"and state as a share of the step's update "
-          + ", ".join(f"{a:.2e} / {b:.2e}" for a, b in gaps)
-          + f" (bars {ZOO_LOSS_RTOL}, {ZOO_UPDATE_SHARE}); two eager runs "
-          + ", ".join(f"{a:.2e} / {b:.2e}" for a, b in spreads)
-          + f"; peak {peak_r50:.2f} GiB | {card}", flush=True)
+    for model, replays, eager_runs in ZOO_PAIRS:
+        diffs, peak = zoo_graph_vs_eager(root, work, model, replays,
+                                         eager_runs)
+        free_card()
+        if any(diffs):
+            fail(f"(b) {model}: a replayed step and the same step run "
+                 f"eagerly from one state differ at {[d[:4] for d in diffs]}")
+        print(f"[unroll] (b) {model}, float32, a capturing call of 1 step, "
+              f"then {replays} replayed step(s), each also run eagerly "
+              f"{eager_runs} time(s) from the state before it (restored in "
+              f"place): {replays * eager_runs} eager step(s) bit-equal to "
+              f"the replay in every metric and state tensor; peak "
+              f"{peak:.2f} GiB | {card}", flush=True)
     return runs_g
 
 
@@ -2592,8 +2701,8 @@ def phase_profile(card, trainer, step_ms, out_path, label="profile"):
 def ab_run(card, spec, profile_out):
     """One run of --ab, in this process: phase 5's trainer and step window
     (AB_STEPS timed steps) with TREE's package, on a one-rank NCCL group
-    for `TREE@nccl`; then, with `profile_out`, phase 6's profile. Prints
-    one JSON line."""
+    for `TREE@nccl` (at --unroll_steps 1 for `TREE@nccl-eager`); then,
+    with `profile_out`, phase 6's profile. Prints one JSON line."""
     tree, _, mode = spec.partition("@")
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -2607,13 +2716,14 @@ def ab_run(card, spec, profile_out):
     try:
         root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
                         n_test=N_TEST, size=256, seed=0)
-        if mode == "nccl":
+        if mode.startswith("nccl"):
             from ust_run_tpu_torch import parallel
             mesh = parallel.init_distributed(
                 backend="nccl", device="cuda:0", rank=0, world_size=1,
                 init_method="file://" + os.path.join(work, "store"))
-        trainer, cfg = make_trainer(train_argv("fundus", root, work, "ab"),
-                                    mesh)
+        extra = ["--unroll_steps", "1"] if mode == "nccl-eager" else []
+        trainer, cfg = make_trainer(train_argv("fundus", root, work, "ab",
+                                               *extra), mesh)
         metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, AB_STEPS)
         check_losses(metrics, spec)
         step_ms = dt / AB_STEPS * 1e3
@@ -2701,6 +2811,7 @@ def main():
     kernels = timed("kernels", phase_kernels, card) \
         + [timed("fused conv", phase_fused_conv, card)]
     timed("reference", phase_reference, card)
+    timed("fused sgd", phase_fused_sgd, card)
     work = os.path.join(HERE, "_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
@@ -2720,7 +2831,7 @@ def main():
         timed("prostate, mnms", phase_prostate_mnms, card, work)
         free_card()
         gloo_img_s, dp_launches = timed("data parallel", phase_data_parallel,
-                                        card, work, main_img_s)
+                                        card, work, main_img_s, args.profile)
         free_card()
         instruments_launches = timed("instruments", phase_instruments, card,
                                      work)

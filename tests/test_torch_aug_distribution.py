@@ -16,9 +16,12 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.ops import augment as jaug
 from ust_run_tpu_torch.data.synthetic import generate
 from ust_run_tpu_torch.ops import augment, rng
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S, N, CALLS = 64, 8, 40
 

@@ -22,6 +22,7 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.data import dl_utils as jdl
 from ust_run_tpu.data import extra_transforms as jX
 from ust_run_tpu.data import transform as jT
@@ -37,6 +38,8 @@ from ust_run_tpu_torch.data.ssda import SSDADataset
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils import metrics as M
 from ust_run_tpu_torch.utils import ramps as R
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -15,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch import bench
 from ust_run_tpu_torch.config import (TrainConfig, build_parser,
                                       config_from_args)
 from ust_run_tpu_torch.semisup.state import build_model, create_train_state
 from ust_run_tpu_torch.semisup.step import HyperParams, step_fn
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASIS = ("BASELINE_METHOD.md (flops model + measured host overheads; ref "

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.engine import checkpoint as jax_ckpt
 from ust_run_tpu.models import UNet as JaxUNet
 from ust_run_tpu_torch.config import build_parser, config_from_args
@@ -27,6 +28,8 @@ from ust_run_tpu_torch.data.synthetic import generate
 from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.trainer import Trainer
 from ust_run_tpu_torch.models import UNet
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 SIZE = 32
 

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from torch_parity import unet_pair
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.convert import unet_state_dict_from_jax
 from ust_run_tpu.config import TrainConfig as JaxConfig
 from ust_run_tpu.data.datasets import SegmentationDataset as JaxDataset
@@ -45,6 +46,8 @@ from ust_run_tpu_torch.semisup.step import HyperParams
 from ust_run_tpu_torch.utils import boundary as B
 from ust_run_tpu_torch.utils import boundary_native as BN
 from ust_run_tpu_torch.utils import native_build
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 SIZE, DOMAINS, BATCH = 32, (1, 2), 2
 NUMBER = re.compile(r"-?\d+\.\d+")

@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.ops import fused_conv as jfc
 from ust_run_tpu_torch.ops import fused_conv as fc
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 SHAPES = [(2, 16, 16, 8, 8), (1, 32, 24, 16, 8), (1, 16, 16, 64, 16)]
 

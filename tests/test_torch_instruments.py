@@ -18,13 +18,17 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from torch_parity import unet_pair
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.engine.trainer import Trainer as JaxTrainer
 from ust_run_tpu_torch import train
 from ust_run_tpu_torch.data.synthetic import generate
 from ust_run_tpu_torch.engine import trainer as trainer_mod
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _jax_module_max(tree):

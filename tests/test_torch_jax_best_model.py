@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 from torch_parity import init_fn, random_variables
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu import config as jax_config
 from ust_run_tpu.data.datasets import SegmentationDataset as JaxDataset
 from ust_run_tpu.data.pipeline import TestLoader as JaxLoader
@@ -35,6 +36,8 @@ from ust_run_tpu_torch import config
 from ust_run_tpu_torch import test as test_entry
 from ust_run_tpu_torch.data.synthetic import generate
 from ust_run_tpu_torch.engine import checkpoint as ckpt
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 64

@@ -8,10 +8,13 @@ import pytest
 import torch
 
 from torch_parity import unet_pair
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models.layers import GroupedBatchNorm as JaxGBN
 from ust_run_tpu.utils.torch_import import unet_from_torch_state_dict
 from ust_run_tpu_torch.convert import unet_state_dict_from_jax
 from ust_run_tpu_torch.models import GroupedBatchNorm, UNet
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _bn_pair(c, seed):

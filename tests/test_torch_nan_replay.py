@@ -21,9 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch import nan_replay, train
 from ust_run_tpu_torch.data.synthetic import generate
 from ust_run_tpu_torch.engine import trainer as trainer_mod
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 LR = "300"
 

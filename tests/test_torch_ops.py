@@ -8,11 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.ops import augment as jaug
 from ust_run_tpu.ops import cutmix as jcut
 from ust_run_tpu.ops import fda as jfda
 from ust_run_tpu.ops import resample as jres
 from ust_run_tpu_torch.ops import augment, cutmix, fda, resample, rng
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 # ---------------------------------------------------------------- RNG ----

@@ -15,6 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -288,7 +292,9 @@ def test_world1_nccl_trainer_equals_plain_trainer_on_card(tmp_path):
     (ust_run_tpu_torch.parallel: shards, gathers, loss partial sums,
     synchronised BatchNorm and the gradient all-reduce, each an identity
     at world 1) takes the plain trainer's steps bit for bit: 3 fundus
-    steps at patch 64, bf16 autocast, every state tensor and metric
+    steps at patch 64, bf16 autocast, at the default --unroll_steps 10 (a
+    call of 3: one eager step, then the step with its NCCL collectives
+    captured once and replayed twice), every state tensor and metric
     equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (NCCL has no CPU mode)")
@@ -297,6 +303,7 @@ def test_world1_nccl_trainer_equals_plain_trainer_on_card(tmp_path):
     from ust_run_tpu_torch.config import build_parser, config_from_args
     from ust_run_tpu_torch.data.synthetic import generate
     from ust_run_tpu_torch.engine.trainer import Trainer
+    from ust_run_tpu_torch.semisup import step
 
     root = generate("fundus", str(tmp_path / "fundus"), n_train=5,
                     n_test=1, size=64, seed=0)
@@ -319,11 +326,57 @@ def test_world1_nccl_trainer_equals_plain_trainer_on_card(tmp_path):
         backend="nccl", device="cuda:0", rank=0, world_size=1,
         init_method=f"file://{tmp_path / 'store'}")
     try:
+        step.reset_counts()
         metrics, state = run("nccl", mesh)
     finally:
         mesh.close()
+    assert step.graph_counts == dict(captures=1, replays=2)
     assert state.keys() == plain.keys()
     assert [k for k in state if not torch.equal(state[k], plain[k])] == []
     for m, want in zip(metrics, plain_metrics):
         for k in want:
             np.testing.assert_array_equal(m[k], want[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_fused_sgd_matches_cpu_on_card():
+    """On a card: one update of the step's optimizer (make_optimizer:
+    momentum 0.9, weight decay 1e-4, a 0-d lr on the parameters' device),
+    SGD(fused=True) as the step runs it on CUDA, against the CPU's
+    unfused update from equal parameters, gradients and momentum, on
+    tensors of the UNet's sizes: within 4 float32 ulp of the larger
+    operand of each last operation (chip_smoke.py's SGD_ULP; the H100
+    reads 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ust_run_tpu_torch.semisup.state import lr_at, make_optimizer
+    r = np.random.RandomState(0)
+    shapes = [(64, 3, 3, 3), (64,), (1024, 512, 3, 3), (2, 64, 1, 1)]
+    p0, g0, b0 = ([torch.from_numpy(r.normal(0, s, sh).astype(np.float32))
+                   for sh in shapes] for s in (0.1, 1e-2, 1e-2))
+    lr = lr_at(1000, 0.03, 30000)
+
+    def update(device, fused):
+        ps = [p.to(device, copy=True).requires_grad_() for p in p0]
+        opt = make_optimizer(ps, 0.03, fused=fused)
+        for p, g, b in zip(ps, g0, b0):       # copies: SGD updates in place
+            p.grad = g.to(device, copy=True)
+            opt.state[p]["momentum_buffer"] = b.to(device, copy=True)
+        for group in opt.param_groups:
+            group["lr"] = torch.tensor(lr, device=device)
+        opt.step()
+        return ([p.detach().cpu() for p in ps],
+                [opt.state[p]["momentum_buffer"].cpu() for p in ps])
+
+    (want_p, want_b), (got_p, got_b) = update("cpu", False), \
+        update("cuda", True)
+
+    def ulps(got, want, scale):
+        return float(((got.double() - want.double()).abs()
+                      / np.spacing(scale.numpy())).max())
+
+    for p, g, b, wp, wb, gp, gb in zip(p0, g0, b0, want_p, want_b, got_p,
+                                       got_b):
+        assert ulps(gb, wb, torch.maximum((0.9 * b).abs(),
+                                          (g + 1e-4 * p).abs())) <= 4
+        assert ulps(gp, wp, torch.maximum(p.abs(), (lr * wb).abs())) <= 4

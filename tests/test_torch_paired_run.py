@@ -6,9 +6,13 @@ and every recorded input lies in the normalised range [-1, 1] (to 1e-6:
 255 / 127.5 - 1 rounds to 1 + 1.2e-7 in float32)."""
 
 import numpy as np
+import pytest
 
 from torch_paired_run import INPUTS, paired_run
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.data.synthetic import generate
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_paired_run_starts_equal(tmp_path):

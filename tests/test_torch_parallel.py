@@ -21,10 +21,13 @@ import pytest
 import torch
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch import train
 from ust_run_tpu_torch.data import synthetic
 from ust_run_tpu_torch.parallel import check_num_devices, shard_slice
 from ust_run_tpu_torch.parallel.mesh import DataMesh
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _rows(sizes, world):

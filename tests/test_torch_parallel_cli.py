@@ -9,11 +9,15 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch import train
 from ust_run_tpu_torch.data import synthetic
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _iteration_losses(log):

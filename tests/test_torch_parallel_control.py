@@ -4,7 +4,12 @@ losses, planted in the port's step on 2 Gloo ranks (tests/torch_dist.py)
 must miss the bar that the port meets.
 """
 
+import pytest
+
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_bars_see_the_mean_of_local_losses(tmp_path):

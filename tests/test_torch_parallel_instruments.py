@@ -2,7 +2,12 @@
 count is replicated, so every rank stops at the same iteration
 (trainer.py:315-323) and rank 0 alone logs the line."""
 
+import pytest
+
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_stop_after_on_two_ranks(tmp_path):

@@ -25,14 +25,18 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import torch_dist as td
 from test_torch_step import (_Recorder, _corpus, _hp, _jax_state,
                              _port_state, _sd, _t)
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models import UNet as JaxUNet
 from ust_run_tpu.semisup.step import make_step_parts
 from ust_run_tpu_torch.semisup import step as pstep
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_fundus_step_on_two_ranks_matches_jax(tmp_path):

@@ -9,9 +9,13 @@ call."""
 
 import shutil
 
+import pytest
 import torch
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_nan_dump_on_two_ranks(tmp_path):

@@ -40,6 +40,9 @@ import pytest
 import torch
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 @pytest.fixture(scope="module")

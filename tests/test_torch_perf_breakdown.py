@@ -15,10 +15,13 @@ import pytest
 import torch
 
 from torch_parity import unet_pair
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.utils import losses as JL
 from ust_run_tpu_torch import perf_breakdown as pb
 from ust_run_tpu_torch.config import TrainConfig
 from ust_run_tpu_torch.semisup.step import HyperParams
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 # the bar of the step's losses against the JAX step (tests/test_torch_step.py;
 # this loss reads within 1e-6 on the CPU)

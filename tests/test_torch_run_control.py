@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.config import TrainConfig as JaxConfig
 from ust_run_tpu.engine.trainer import Trainer as JaxTrainer
 from ust_run_tpu.semisup import HyperParams as JaxHP
@@ -27,6 +28,8 @@ from ust_run_tpu_torch.cli import bootstrap
 from ust_run_tpu_torch.config import build_parser
 from ust_run_tpu_torch.data.synthetic import generate
 from ust_run_tpu_torch.engine import trainer as trainer_mod
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 class RecordingWriter:

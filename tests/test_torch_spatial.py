@@ -27,9 +27,12 @@ import torch
 import torch.nn.functional as F
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch import parallel
 from ust_run_tpu_torch.parallel import spatial
 from ust_run_tpu_torch.parallel.mesh import Mesh
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _image(data_index, n=2, c=3, h=48, w=5):

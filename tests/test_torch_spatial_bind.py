@@ -27,11 +27,14 @@ import torch.nn.functional as F
 from torch import nn
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.models import (DeepLabV2, ResNet, UNet, Unet2D,
                                       Unet2D_MT, build_WideResNet)
 from ust_run_tpu_torch.parallel import GroupSizes, bind_mesh, spatial
 from ust_run_tpu_torch.parallel.mesh import Mesh
 from ust_run_tpu_torch.parallel.spatial import SlabAware
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S = 32
 MODELS = {"unet": lambda: UNet(3, 2),

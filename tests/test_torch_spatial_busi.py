@@ -6,7 +6,12 @@ gradient lies 1.04e-4 (in norm) from JAX's, as the single-process
 port's does; of seeds 2-12 it is the only one (test_torch_step's seed 2
 reads 3.4e-3 on the mesh, 1.1e-4 without it)."""
 
+import pytest
+
 from test_torch_parallel_jax import check_two_ranks_against_jax
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_busi_step_on_a_space_axis_matches_jax(tmp_path):

@@ -43,6 +43,9 @@ import numpy as np
 import pytest
 
 import torch_spatial_zoo as tz
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S, WORLD, SPATIAL = 32, 4, 2
 RUNS = (("resnet", 4, S, None), ("r50", 0, S, None), ("r50", 0, S, "smooth"),

@@ -25,6 +25,9 @@ import functools
 import pytest
 
 import torch_spatial_zoo as tz
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S, WORLD, SPATIAL, SEED = 64, 4, 4, 0
 RUNS = {fault: ("r50", SEED, S, fault)

@@ -28,7 +28,10 @@ import pytest
 import torch
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.parallel import spatial
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 WIDTHS = [(1, 1), (3, 2), (1, 0), (2, 2), (4, 4), (24, 24)]
 FILLS = ["zeros", "neg_inf", "edge"]

@@ -41,8 +41,11 @@ import torch.nn.functional as F
 from torch import nn
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.models.deeplab import resize_align_corners
 from ust_run_tpu_torch.parallel import GroupSizes, spatial
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 IMAGES = {2: (48, 32), 4: (64, 48)}           # space -> input (H, W)
 N = 2

@@ -19,8 +19,12 @@ meets it.
 """
 
 import numpy as np
+import pytest
 
 import torch_dist as td
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def test_deeplab_r50_step_on_1x2_matches_one_process(tmp_path):

@@ -27,6 +27,9 @@ the mesh's gradients lie within 5e-6 of one process's at seed 1.
 import pytest
 
 from test_torch_parallel_jax import check_two_ranks_against_jax
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 @pytest.mark.parametrize("world,spatial", [(2, 2), (4, 2)])

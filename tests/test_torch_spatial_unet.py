@@ -45,10 +45,13 @@ import torch.nn.functional as F
 
 import torch_dist as td
 from torch_parity import np_tree, unet_pair
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.parallel.mesh import make_mesh, spatial_constraint
 from ust_run_tpu_torch.convert import unet_state_dict_from_jax
 from ust_run_tpu_torch.models import UNet
 from ust_run_tpu_torch.parallel import bind_mesh
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S, GROUPS, SEED = 48, 3, 5
 

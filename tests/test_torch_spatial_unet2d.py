@@ -26,6 +26,9 @@ import functools
 import pytest
 
 import torch_spatial_zoo as tz
+from torch_threads import single_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S, WORLD, SPATIAL, SEED = 48, 4, 2, 0
 RUNS = {fault: ("unet2d", SEED, S, fault)

@@ -27,18 +27,22 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import torch_dist as td
 from test_torch_step import _corpus, _hp, _jax_state, _Recorder, _t
 from torch_parity import np_tree
 from torch_spatial_zoo import grad_errors
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models import Unet2D as JaxUnet2D
 from ust_run_tpu.parallel.mesh import make_mesh
 from ust_run_tpu.semisup.step import make_step_parts
 from ust_run_tpu_torch.convert import unet2d_state_dict_from_jax
 from ust_run_tpu_torch.semisup import state as pstate
 from ust_run_tpu_torch.semisup import step as pstep
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 UNET2D_SEED = 2
 

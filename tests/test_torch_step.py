@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from torch_parity import np_tree, random_unet_variables
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models import UNet as JaxUNet
 from ust_run_tpu.semisup.state import (CurriculumQueue, LQCarry, TrainState,
                                        make_optimizer)
@@ -45,6 +46,8 @@ from ust_run_tpu_torch.convert import unet_state_dict_from_jax
 from ust_run_tpu_torch.models import UNet
 from ust_run_tpu_torch.semisup import state as pstate
 from ust_run_tpu_torch.semisup import step as pstep
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 S, N_CORPUS = 32, 6
 

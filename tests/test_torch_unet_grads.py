@@ -20,7 +20,10 @@ import pytest
 import torch
 
 from torch_parity import np_tree, unet_pair
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.convert import unet_state_dict_from_jax
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 @pytest.mark.parametrize("c,k,pack,split", [(3, 2, 1, 1), (1, 4, 0, 0)])

@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 
 from torch_unroll import hp_for
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models import UNet as JaxUNet
 from ust_run_tpu.semisup import create_train_state
 from ust_run_tpu.semisup.step import HyperParams as JaxHP
 from ust_run_tpu.semisup.step import (make_train_multi_step, make_train_step,
                                       metric_spec, unpack_metrics)
 from ust_run_tpu_torch.semisup import step as pstep
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 K = 2
 

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.semisup.state import make_optimizer
 from ust_run_tpu.utils import losses as JL
 from ust_run_tpu.utils import metrics as JM
@@ -14,6 +15,8 @@ from ust_run_tpu_torch.semisup.state import lr_at
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils import metrics as M
 from ust_run_tpu_torch.utils import ramps as R
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _close(a, b, tol=1e-6):

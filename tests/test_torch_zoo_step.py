@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch import test as test_entry
 from ust_run_tpu_torch import train, train_mnms, work
 from ust_run_tpu_torch.config import build_parser, config_from_args
@@ -43,6 +44,8 @@ from ust_run_tpu_torch.models import DeepLabV2, Unet2D
 from ust_run_tpu_torch.ops import rng
 from ust_run_tpu_torch.semisup import state as pstate
 from ust_run_tpu_torch.semisup import step as pstep
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 LOSSES = ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
           "unsup_loss_s")

@@ -17,12 +17,15 @@ import torch
 
 from torch_parity import (GROUPINGS, assert_close, assert_stats, init_fn,
                           jit_apply, loaded, nchw, nhwc, random_variables)
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models import unet2d as junet2d
 from ust_run_tpu.models.dsbn import DomainSpecificBatchNorm2d as JaxDSBN
 from ust_run_tpu.models.wrn import build_WideResNet as jax_wrn
 from ust_run_tpu_torch import convert
 from ust_run_tpu_torch.models import (DomainSpecificBatchNorm2d,
                                       build_WideResNet, unet2d)
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _unet2d_case(norm, grouping):

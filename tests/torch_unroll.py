@@ -6,27 +6,14 @@ step's plumbing, which no model width changes, and the UNet's fixed
 64-1024 widths would make each CPU step cost a second."""
 
 import numpy as np
-import pytest
 import torch
 
+from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu_torch.models import Unet2D
 from ust_run_tpu_torch.semisup import state as pstate
 from ust_run_tpu_torch.semisup.step import HyperParams
 
 S, N_CORPUS = 32, 6
-
-
-@pytest.fixture
-def single_thread():
-    """torch on one thread for the test (restored after): these small
-    steps gain nothing from more, and the suite's workers share the
-    machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def hp_for(dataset, max_iterations=10):

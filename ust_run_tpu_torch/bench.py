@@ -1,7 +1,7 @@
 """Headline benchmark of the port: SSL training throughput, images/s on
 one GPU (counterpart of the repo's bench.py).
 
-    python -m ust_run_tpu_torch.bench [--device cpu]
+    python -m ust_run_tpu_torch.bench [--device cpu] [--deterministic 0]
 
 Times the trainer's own calls (the models and the state built as
 `engine/trainer.py` builds them, TF32 off, the UNet under bf16 autocast
@@ -156,7 +156,7 @@ class Bench:
 
     def __init__(self, cfg, device="cuda"):
         self.device = resolve_device(device)
-        set_numerics()
+        set_numerics(cfg.deterministic, cfg.seed)
         self.cfg = cfg
         self.hp = HyperParams.from_config(cfg)
         self.unroll = cfg.unroll_steps
@@ -237,10 +237,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback")
+    ap.add_argument("--deterministic", type=int, default=1,
+                    help="the train entry's flag: 1 (default) deterministic "
+                    "cuDNN, 0 cuDNN's benchmarked choice")
     args = ap.parse_args(argv)
     done = start_watchdog(int(os.environ.get("UST_BENCH_WATCHDOG", "900")))
     try:
         cfg, bench_bs = bench_config(os.environ)
+        cfg.deterministic = args.deterministic
         bench = Bench(cfg, args.device)
         step_mod.reset_counts()
         img_s, last = measure(bench)
@@ -256,6 +260,7 @@ def main(argv=None):
         "card": card_line(bench.device), "dataset": cfg.dataset,
         "model": cfg.model, "batch": [hp.label_bs, hp.unlabel_bs],
         "patch": hp.patch, "unroll": bench.unroll,
+        "deterministic": cfg.deterministic,
         "warmup_steps": WARMUP_CALLS * bench.unroll,
         "steps_timed": TIMED_CALLS * bench.unroll,
         "steps_run": bench.steps,

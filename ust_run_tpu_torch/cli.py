@@ -2,8 +2,10 @@
 
 Snapshot directory `<model_root>/<dataset>/<save_name>/` with the
 overwrite guard, the entry script copied into it, and logging to
-`log.txt` + stdout (reference train.py:964-999). Seeding is explicit: the
-trainer's generators are made from `--seed`; no global RNG is seeded.
+`log.txt` + stdout (reference train.py:964-999). The trainer's
+generators are made from `--seed`; `--deterministic 1` (the default) also
+seeds the global `random` and `np.random` as the JAX CLI does and makes
+cuDNN deterministic (engine.trainer.set_numerics).
 Under a data-parallel mesh every rank checks the guard and rank 0 alone
 makes the directory, copies the script and logs.
 """
@@ -14,10 +16,12 @@ import shutil
 import sys
 
 from ust_run_tpu_torch.config import config_from_args
+from ust_run_tpu_torch.engine.trainer import set_numerics
 
 
 def bootstrap(args, script_path, mesh=None):
     cfg = config_from_args(args).resolve()
+    set_numerics(cfg.deterministic, cfg.seed)
     snapshot_path = os.path.join(cfg.model_root, cfg.dataset,
                                  cfg.save_name) + "/"
     exists = os.path.exists(snapshot_path)

@@ -46,6 +46,7 @@ ust_run_tpu/engine/trainer.py).
 
 import logging
 import os
+import random
 import sys
 import time
 
@@ -72,13 +73,25 @@ LOSS_TERMS = ("loss", "sup_loss", "unsup_loss_ul", "unsup_loss_lu",
               "unsup_loss_s")
 
 
-def set_numerics():
+def set_numerics(deterministic=1, seed=None):
     """float32 matrix products and convolutions in full float32 (no TF32):
     the band-matrix smoothing of the elastic fields must be float32, and
     amp=0 runs should be float32 throughout. bf16 work comes from autocast
-    (amp=1) alone."""
+    (amp=1) alone.
+
+    `deterministic` is --deterministic (upstream's bootstrap): at 1, the
+    default, cuDNN runs only deterministic algorithms and does not
+    benchmark, so a step from one state gives the same bits every run, and
+    with `seed` the global `random` and `np.random` are seeded as
+    ust_run_tpu/cli.py:69-71 seeds them; at 0 cuDNN benchmarks and picks
+    the fastest algorithm, deterministic or not."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = bool(deterministic)
+    torch.backends.cudnn.benchmark = not deterministic
+    if deterministic and seed is not None:
+        random.seed(seed)
+        np.random.seed(seed)
 
 
 def unroll_of(cfg):
@@ -138,7 +151,7 @@ class Trainer:
         self.is_main = mesh is None or mesh.rank == 0
         self.device = resolve_device(cfg.device if mesh is None
                                      else mesh.device)
-        set_numerics()
+        set_numerics(cfg.deterministic)
         p = cfg.profile()
         self.profile_ = p
         self.hp = HyperParams.from_config(cfg)

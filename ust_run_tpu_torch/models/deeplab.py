@@ -3,7 +3,8 @@ reference networks/deeplabv2.py:9-33 + networks/backbone/base.py:8-45).
 
 The head is four parallel 3x3 convolutions with biases at dilations
 6/12/18/24 on the stride-8 features, summed, then resized bilinearly with
-align_corners=True back to the input size. `tta=True` is BaseNet's test
+align_corners=True back to the input size (two interpolation-matrix
+products, as in JAX). `tta=True` is BaseNet's test
 augmentation: five scales, each with a horizontal flip, softmax
 probabilities summed (base.py:23-45).
 
@@ -24,7 +25,6 @@ resized on the image's global sampling grid
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ust_run_tpu_torch.models import resnet as resnet_lib
@@ -35,11 +35,16 @@ _DILATIONS = (6, 12, 18, 24)
 
 def resize_align_corners(x, h2, w2):
     """NCHW bilinear resize with align_corners=True (deeplab.py:41-49:
-    output pixel i samples input position i*(n_in-1)/(n_out-1))."""
-    if tuple(x.shape[2:]) == (h2, w2):
+    output pixel i samples input position i*(n_in-1)/(n_out-1)), as the
+    JAX package computes it: two interpolation-matrix products, the
+    matrices made once per size and device (F.interpolate's CUDA backward
+    adds with atomics, so its sums change from run to run)."""
+    h, w = x.shape[2:]
+    if (h, w) == (h2, w2):
         return x
-    return F.interpolate(x, size=(h2, w2), mode="bilinear",
-                         align_corners=True)
+    return spatial.resize_by(
+        x, spatial.align_matrix(h2, h, x.device),
+        spatial.align_matrix(w2, w, x.device))
 
 
 class DeepLabV2(spatial.SlabAware):

@@ -9,7 +9,9 @@ statistics; dsbn: DomainSpecificBatchNorm2d), `Unet2D`, `Unet2D_MT`
 `Unet2D_MS` (multi-scale heads) and the PatchGAN-style `Discriminator`.
 Convolutions have biases; weights are drawn kaiming-normal with fan_out
 and biases U(-b, b), b = 1/sqrt(out * k * k), as in the JAX package.
-Bilinear upsampling is align_corners=False (nn.Upsample, unet.py:85).
+Bilinear upsampling is align_corners=False (nn.Upsample, unet.py:85),
+computed as two interpolation-matrix products (spatial.resize_bilinear:
+no atomics in its backward, so the step is run-to-run deterministic).
 
 Module names are upstream's flat torch layout (`convd{1..5}.{conv,bn}J`,
 `convu{4..1}.{conv,bn}J`, `seg1`, `rec1`, `out1`), which
@@ -313,8 +315,7 @@ class Unet2D_DS(_Unet2DBase):
             return y1_pred
 
         def up(t):
-            return _nhwc(F.interpolate(t, size=tuple(x.shape[2:]),
-                                       mode="bilinear", align_corners=False))
+            return _nhwc(spatial.resize_bilinear(t, *x.shape[2:]))
 
         return (y1_pred, up(self.seg2(y2)), up(self.seg3(y3)),
                 up(self.seg4(y4)), up(self.seg5(feats[4])))

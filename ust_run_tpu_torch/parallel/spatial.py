@@ -18,7 +18,9 @@ GSPMD's spatial partitioner (ust_run_tpu/parallel/mesh.py:11-13).
 Transport is one sum all-reduce over the space group of a zero buffer
 that holds the rows exchanged and nothing else: each owner fills its rows
 forward, and each consumer its halo rows' gradients backward, which the
-owners then add to their rows. It is the one code path that Gloo on CUDA
+owners then add to their rows (every fold of gradients a product with a
+0/1 matrix made once per plan: index_add_ on CUDA adds with atomics, in
+an order that changes from run to run). It is the one code path that Gloo on CUDA
 tensors, Gloo on the CPU and NCCL all take (Gloo offers only `all_reduce`
 and `broadcast` for CUDA tensors). Forward, each position has one
 non-zero contributor, so the sum is a copy. 16-bit values travel as
@@ -184,26 +186,61 @@ class _Halo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         mesh, plan = ctx.mesh, ctx.plan
-        n, c, rows, w = grad.shape
         top, dev = plan.top, grad.device
-        h = rows - top - plan.bottom
-        nl = len(plan.local)
-        g_pool = grad.new_zeros((n, c, nl + plan.slots + 1, w)).index_add_(
-            2, _index(plan.idx, dev),
-            torch.cat([grad[:, :, :top], grad[:, :, top + h:]], dim=2))
-        gx = grad[:, :, top:top + h].clone()
-        if nl:
-            gx.index_add_(2, _index(plan.local, dev), g_pool[:, :, :nl])
+        h = grad.shape[2] - top - plan.bottom
+        g_halo = torch.cat([grad[:, :, :top], grad[:, :, top + h:]], dim=2)
+        local, slots, recv = (_const(("fold", i, plan, h), dev,
+                                     lambda: _fold(plan, h)[i])
+                              for i in range(3))
+        gx = grad[:, :, top:top + h] + rows_product(local, g_halo)
         if plan.slots:
-            buf = g_pool[:, :, nl:nl + plan.slots].permute(2, 0, 1, 3) \
-                .to(wire_dtype(grad.dtype)).contiguous()
+            wire = wire_dtype(grad.dtype)
+            buf = rows_product(slots, g_halo.to(wire)).contiguous()
             dist.all_reduce(buf, group=mesh.space_group)
-            if plan.send:
-                gx.index_add_(2, _index(plan.send, dev),
-                              buf.index_select(0, _index(plan.send_slots,
-                                                         dev))
-                              .permute(1, 2, 0, 3).to(gx.dtype))
+            gx = gx + rows_product(recv, buf).to(gx.dtype)
         return gx, None, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def _fold(plan, h):
+    """The halo's backward as three 0/1 matrices over rows (the plan is
+    fixed per layout, so they are made once): (h, R) adding each of the
+    R = top + bottom halo rows' gradients to the local row it copied,
+    (slots, R) placing the others in the exchange buffer, and (h, slots)
+    adding the summed buffer's slots to the rows this rank sent. Products
+    with them sum in a fixed order, where index_add_ on CUDA adds with
+    atomics."""
+    nl, halo = len(plan.local), len(plan.idx)
+    pool = np.zeros((nl + plan.slots + 1, halo), np.float32)
+    pool[list(plan.idx), np.arange(halo)] = 1.0       # the fill row: dropped
+    local = np.zeros((h, nl), np.float32)
+    local[list(plan.local), np.arange(nl)] = 1.0
+    recv = np.zeros((h, plan.slots), np.float32)
+    np.add.at(recv, (list(plan.send), list(plan.send_slots)), 1.0)
+    return local @ pool[:nl], pool[nl:nl + plan.slots], recv
+
+
+def rows_product(m, x):
+    """y[n, c, i, w] = sum over r of m[i, r] x[n, c, r, w]: a matrix over
+    the rows of an (N, C, R, W) tensor, as one matrix product on its
+    channels-last rows; (N, C, I, W), channels_last in memory."""
+    n, c, r, w = x.shape
+    y = torch.matmul(m.to(x.dtype), x.permute(0, 2, 3, 1).reshape(n, r,
+                                                                  w * c))
+    return y.reshape(n, -1, w, c).permute(0, 3, 1, 2)
+
+
+def resize_by(x, my, mw):
+    """x (N, C, H, W) resized by interpolation matrices: `my` (H2, H) over
+    the rows, then `mw` (W2, W) over the columns (the JAX package's two
+    einsums), each one matrix product on the channels-last rows, whose
+    backward is two more products, with no atomics. (N, C, H2, W2),
+    channels_last in memory."""
+    y = rows_product(my, x)
+    n, c, h2, w = y.shape
+    z = torch.matmul(mw.to(x.dtype), y.permute(0, 2, 3, 1).reshape(
+        n * h2, w, c))
+    return z.reshape(n, h2, -1, c).permute(0, 3, 1, 2)
 
 
 def halo_rows(x, mesh, top=1, bottom=1, fill="zeros", bounds=None):
@@ -333,18 +370,52 @@ def max_pool2d(x, kernel, stride, padding, mesh=None, sizes=None):
                         kernel, stride=stride, padding=(0, padding))
 
 
+def bilinear_matrix(n_out, n_in):
+    """(n_out, n_in) weights of the bilinear enlargement with half-pixel
+    centres (nn.Upsample(mode='bilinear', align_corners=False);
+    jax.image.resize's "bilinear" when n_out >= n_in): output i samples
+    input position (i + 0.5) * n_in / n_out - 0.5, clamped to the edge
+    rows, as jax.image.resize's weights renormalised over the rows inside
+    the image."""
+    assert n_out >= n_in, (n_out, n_in)
+    pos = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0, n_in - 1)
+    lo = np.minimum(np.floor(pos).astype(np.int64), max(n_in - 2, 0))
+    frac = pos - lo
+    m = np.zeros((n_out, n_in), np.float64)
+    m[np.arange(n_out), lo] = 1.0 - frac
+    if n_in > 1:
+        m[np.arange(n_out), lo + 1] += frac
+    return m.astype(np.float32)
+
+
+def resize_bilinear(x, h2, w2):
+    """F.interpolate(x, (h2, w2), mode='bilinear', align_corners=False) of
+    an (N, C, h, w) tensor enlarged to h2 x w2 (jax.image.resize's
+    "bilinear"), as two matrix products (`resize_by`)."""
+    h, w = x.shape[2:]
+    dev = x.device
+    return resize_by(x, _const(("bilinear", h2, h), dev,
+                               lambda: bilinear_matrix(h2, h)),
+                     _const(("bilinear", w2, w), dev,
+                            lambda: bilinear_matrix(w2, w)))
+
+
 def upsample2x(x, mesh=None, sizes=None):
     """nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False) of
-    the whole image, restricted to this rank's rows when `mesh` is given:
-    one halo row each side (the edge row repeated past the image's edges,
-    the resize's own clamp), upsampled, cropped to the slab's rows."""
+    the whole image, as two matrix products (`resize_bilinear`),
+    restricted to this rank's rows when `mesh` is given: one halo row each
+    side (the edge row repeated past the image's edges, the resize's own
+    clamp) and the haloed slab's interpolation rows cropped to the slab's
+    own, so no output row reads the slab's clamped edges."""
+    h, w = x.shape[2:]
     if mesh is None:
-        return F.interpolate(x, scale_factor=2, mode="bilinear",
-                             align_corners=False)
-    bounds = layout(mesh, sizes, x.shape[3], x.shape[2])
-    y = F.interpolate(halo_rows(x, mesh, 1, 1, "edge", bounds),
-                      scale_factor=2, mode="bilinear", align_corners=False)
-    return y[:, :, 2:-2]
+        return resize_bilinear(x, 2 * h, 2 * w)
+    bounds = layout(mesh, sizes, w, h)
+    my = _const(("bilinear slab", h), x.device,
+                lambda: bilinear_matrix(2 * h + 4, h + 2)[2:-2])
+    mw = _const(("bilinear", 2 * w, w), x.device,
+                lambda: bilinear_matrix(2 * w, w))
+    return resize_by(halo_rows(x, mesh, 1, 1, "edge", bounds), my, mw)
 
 
 def interp_matrix(n_out, n_in):
@@ -364,6 +435,12 @@ def interp_matrix(n_out, n_in):
     return m
 
 
+def align_matrix(n_out, n_in, device):
+    """interp_matrix(n_out, n_in) on `device`, made once."""
+    return _const(("align", n_out, n_in), device,
+                  lambda: interp_matrix(n_out, n_in))
+
+
 def resize_align_corners(x, h2, w2, mesh, sizes):
     """The bilinear align_corners=True resize of the whole image to a
     layer of h2 x w2 per rank (DeepLab's logits at the input's size),
@@ -379,9 +456,7 @@ def resize_align_corners(x, h2, w2, mesh, sizes):
     xh = halo_rows(x, mesh, top, bottom, "zeros", bounds1)
     my = _const(("rows", bounds1, bounds2, mesh.space_index), x.device,
                 lambda: my)
-    mw = _const(("width", w2, w1), x.device, lambda: interp_matrix(w2, w1))
-    y = torch.einsum("ih,nchw->nciw", my.to(x.dtype), xh)
-    return torch.einsum("jw,nciw->ncij", mw.to(x.dtype), y)
+    return resize_by(xh, my, align_matrix(w2, w1, x.device))
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,7 @@
 tools/perf_breakdown.py).
 
     python -m ust_run_tpu_torch.perf_breakdown [--dataset D] [--skip-full]
-        [--n 20] [--device cpu]
+        [--n 20] [--device cpu] [--deterministic 0]
 
 Times each stage of the step as the port runs it, on the JAX tool's
 synthetic inputs (numpy RandomState(0), drawn in its order): the weak
@@ -14,9 +14,10 @@ the whole step (`semisup/step.py:step_fn`) on a 64-image corpus. Each
 stage: one warm-up call, then `n` calls on the host clock between two
 synchronisations (the stream is serial: the last done means all done).
 Numerics are the trainer's: TF32 off, the UNet under bf16 autocast on the
-card. Prints one JSON object of ms per call, to 2 decimals, with the JAX
-tool's keys; `stage_sum` sums every stage but `full_step`. `--skip-full`
-leaves the whole step out.
+card, cuDNN deterministic unless `--deterministic 0`. Prints one JSON
+object of ms per call, to 2 decimals, with the JAX tool's keys;
+`stage_sum` sums every stage but `full_step`. `--skip-full` leaves the
+whole step out.
 """
 
 import argparse
@@ -97,7 +98,7 @@ def breakdown(cfg, device="cuda", n=20, skip_full=False):
     """{stage: ms per call} (rounded to 2 decimals) of the step of `cfg`
     on `device`, the JAX tool's keys in its order."""
     dev = resolve_device(device)
-    set_numerics()
+    set_numerics(cfg.deterministic, cfg.seed)
     hp = HyperParams.from_config(cfg)
     amp = bool(cfg.amp) and dev.type == "cuda"
 
@@ -173,8 +174,12 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=20)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback")
+    ap.add_argument("--deterministic", type=int, default=1,
+                    help="the train entry's flag: 1 (default) deterministic "
+                    "cuDNN, 0 cuDNN's benchmarked choice")
     args = ap.parse_args(argv)
     cfg = TrainConfig(dataset=args.dataset).resolve()
+    cfg.deterministic = args.deterministic
     res = breakdown(cfg, args.device, args.n, args.skip_full)
     print(f"[perf_breakdown] {card_line(resolve_device(args.device))} | "
           f"{cfg.dataset} {cfg.model}, patch {cfg.profile().patch_size}, "

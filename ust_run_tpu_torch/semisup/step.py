@@ -37,8 +37,10 @@ device tensors and writes the state in place, so one captured CUDA graph
 of it serves every step: `multi_step` captures the step once per state,
 hyperparameters and corpus, and replays it K times per call, copying
 row k of the call's (K, ...) index and feed tensors into the graph's
-inputs before replay k and its metrics out after it. On the CPU, and
-with a mesh, `multi_step` runs K eager bodies. Gradients flow only
+inputs before replay k and its metrics out after it. On an NCCL mesh the
+graph holds the step's collectives too (NCCL's kernels are captured like
+any other); on the CPU, and on a Gloo mesh, whose collectives run on the
+host and cannot be captured, `multi_step` runs K eager bodies. Gradients flow only
 through `loss_terms`; pseudo-labels, the hardness and all state updates
 are computed without autograd.
 """
@@ -48,6 +50,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ust_run_tpu_torch.ops import augment, cutmix, fda, rng
 from ust_run_tpu_torch.semisup.state import CurriculumQueue, lr_at
@@ -675,9 +678,16 @@ class StepGraph:
         return self.metrics
 
 
-def _graph_key(data, hp):
-    return hp, tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
-                     for k, v in sorted(data.items()))
+def _graph_key(data, hp, mesh=None):
+    """What a captured step is valid for: the hyperparameters, the corpus
+    tensors and, on a mesh, its layout (world, data x space, this rank's
+    place), which with the batch sizes fixes every GroupSizes that
+    `mesh.shard` hands the models and every halo plan."""
+    layout = None if mesh is None else (
+        mesh.world, mesh.data, mesh.space, mesh.data_index,
+        mesh.space_index)
+    return hp, layout, tuple((k, v.data_ptr(), tuple(v.shape), v.dtype)
+                             for k, v in sorted(data.items()))
 
 
 def _carried(state):
@@ -691,12 +701,13 @@ def _carried(state):
     return tuple(t.data_ptr() for t in ts)
 
 
-def _capture(state, data, idx, feed, hp, first_out):
+def _capture(state, data, idx, feed, hp, first_out, mesh=None):
     """The step captured as a CUDA graph. Runs the call's first step
     eagerly first (`idx`, `feed`: its rows; metrics into `first_out`), on
     the capture's side stream, as the warm-up that creates what the step
-    makes on first use (momentum buffers, cached matrices, library
-    handles and workspaces); then records the body, which runs nothing.
+    makes on first use (momentum buffers, cached matrices and plans,
+    library handles and workspaces, and on a mesh NCCL's communicators on
+    that stream); then records the body, which runs nothing.
     The state's device generator is registered, so each replay advances
     it as the eager step would; the gradients are set to None first, so
     the backward's gradients are the graph's own, reused by each
@@ -705,7 +716,7 @@ def _capture(state, data, idx, feed, hp, first_out):
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        first_out.copy_(_eager_step(state, data, idx, feed, hp))
+        first_out.copy_(_eager_step(state, data, idx, feed, hp, mesh))
     torch.cuda.current_stream(dev).wait_stream(side)
     static_idx = {k: torch.empty_like(v) for k, v in idx.items()}
     static_feed = torch.empty_like(feed)
@@ -715,47 +726,58 @@ def _capture(state, data, idx, feed, hp, first_out):
     step, captured = state.step, rng.captured
     try:
         with torch.cuda.graph(graph, stream=side):
-            metrics = step_body(state, data, static_idx, static_feed, hp)
+            metrics = step_body(state, data, static_idx, static_feed, hp,
+                                mesh)
     finally:
         state.step = step                 # the capture ran no step
     rng_per = rng.captured - captured
     graph_counts["captures"] += 1
-    return StepGraph(_graph_key(data, hp), graph, static_idx, static_feed,
-                     metrics, _carried(state), rng_per)
+    return StepGraph(_graph_key(data, hp, mesh), graph, static_idx,
+                     static_feed, metrics, _carried(state), rng_per)
 
 
-_mesh_noted = False
+_gloo_noted = False
+
+
+def capturable(mesh):
+    """Whether a step on `mesh` (None: no mesh) can be captured: NCCL's
+    collectives are device kernels a CUDA graph records; Gloo's run on
+    the host."""
+    return mesh is None or dist.get_backend(mesh.group) == "nccl"
 
 
 def multi_step(state, data, idxs, feeds, hp, mesh=None):
     """K steps in one call (make_train_multi_step): `idxs` {'lb_idx',
     'ulb_idx'} (K, B) int64 and `feeds` (K, F) int32 (`draw_feeds`), on
     the state's device; returns the (K, M) packed metrics on the device.
-    On the CPU, or with `mesh`, K eager bodies. On a CUDA device the step
-    is captured at the first call for this state, hyperparameters and
-    corpus (that call's first step runs eagerly, see `_capture`) and
+    On the CPU, or on a Gloo mesh, K eager bodies. On a CUDA device, with
+    no mesh or an NCCL one, the step (its collectives too) is captured at
+    the first call for this state, hyperparameters, corpus and mesh
+    layout (that call's first step runs eagerly, see `_capture`) and
     replayed for every other step; a graph whose state tensors moved
     raises."""
-    global _mesh_noted
+    global _gloo_noted
     k = feeds.shape[0]
 
     def rows(i):
         return {name: v[i] for name, v in idxs.items()}
 
-    if feeds.device.type != "cuda" or mesh is not None:
-        if mesh is not None and not _mesh_noted:
-            _mesh_noted = True
-            logging.info("K-step calls on a mesh run K eager steps (no "
-                         "CUDA graph)")
+    if feeds.device.type != "cuda" or not capturable(mesh):
+        if mesh is not None and feeds.device.type == "cuda" \
+                and not _gloo_noted:
+            _gloo_noted = True
+            logging.info("K-step calls on a Gloo mesh run K eager steps "
+                         "(Gloo's collectives run on the host: no CUDA "
+                         "graph)")
         return torch.stack([_eager_step(state, data, rows(i), feeds[i], hp,
                                         mesh) for i in range(k)])
     out = torch.empty((k, sum(n for _, n in metric_spec(hp))),
                       device=feeds.device)
     g, start = state.graph, 0
-    if g is None or g.key != _graph_key(data, hp):
+    if g is None or g.key != _graph_key(data, hp, mesh):
         state.graph = None
         state.graph = g = _capture(state, data, rows(0), feeds[0], hp,
-                                   out[0])
+                                   out[0], mesh)
         start = 1
     if _carried(state) != g.carried:
         raise RuntimeError("a state tensor the captured step reads has "

@@ -31,6 +31,7 @@ from ust_run_tpu_torch.data.datasets import SegmentationDataset
 from ust_run_tpu_torch.data.pipeline import TestLoader
 from ust_run_tpu_torch.engine import checkpoint as ckpt
 from ust_run_tpu_torch.engine.evaluator import Evaluator
+from ust_run_tpu_torch.engine.trainer import set_numerics
 from ust_run_tpu_torch.parallel import init_distributed
 from ust_run_tpu_torch.semisup.state import build_model
 from ust_run_tpu_torch.semisup.step import HyperParams
@@ -54,6 +55,9 @@ def build_parser():
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--model_root", type=str, default="../model")
     parser.add_argument("--eval_batch", type=int, default=8)
+    parser.add_argument("--deterministic", type=int, default=1,
+                        help="1 (default): deterministic cuDNN and seeded "
+                        "global RNGs, as the train entry")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; cuda:LOCAL_RANK under "
                              "torchrun; raises if absent), cuda:N or cpu")
@@ -78,7 +82,9 @@ def evaluate(args, mesh=None):
     cfg = TrainConfig(dataset=args.dataset, save_name=args.save_name,
                       model=args.model, domain_num=args.domain_num,
                       data_root=args.data_root, model_root=args.model_root,
-                      eval_batch=args.eval_batch, device=args.device).resolve()
+                      eval_batch=args.eval_batch, device=args.device,
+                      deterministic=args.deterministic).resolve()
+    set_numerics(cfg.deterministic, cfg.seed)
     profile = cfg.profile()
     snapshot_path = os.path.join(cfg.model_root, cfg.dataset,
                                  cfg.save_name) + "/"
