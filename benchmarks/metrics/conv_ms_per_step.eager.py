@@ -1,0 +1,6 @@
+"""`conv_ms_per_step` (metrics/conv_ms_per_step.py) of the eager cell, where it moves
+`train_img_per_s.eager`."""
+
+from benchmarks.registry import reader
+
+read = reader("conv_ms_per_step")

@@ -1,0 +1,6 @@
+"""`kernels_per_step` (metrics/kernels_per_step.py) of the eager cell, where it moves
+`train_img_per_s.eager`."""
+
+from benchmarks.registry import reader
+
+read = reader("kernels_per_step")

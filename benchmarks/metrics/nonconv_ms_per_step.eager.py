@@ -1,0 +1,6 @@
+"""`nonconv_ms_per_step` (metrics/nonconv_ms_per_step.py) of the eager cell, where it moves
+`train_img_per_s.eager`."""
+
+from benchmarks.registry import reader
+
+read = reader("nonconv_ms_per_step")
