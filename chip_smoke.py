@@ -144,11 +144,21 @@ Phases, one line each (or a few); any failure exits non-zero:
      UST_BENCH_UNROLL=2: one stdout line, bench.py's JSON with the metric's
      name and a finite rate above 0, and on stderr uniform_rng launched once
      per step run (one capture and a replay per other step at unroll
-     above 1) and a finite last loss; `python -m
-     ust_run_tpu_torch.perf_breakdown --n 5` (fundus): the JAX tool's nine
-     keys, each finite; then, in this process, one bench step after a
-     warm-up step under the sync debug mode, its index copy and lagged
-     fetch included;
+     above 1) and a finite last loss; then, in this process, one bench
+     step after a warm-up step under the sync debug mode, its index copy
+     and lagged fetch included, whose stage clock (utils/trace.py) must
+     count each clocked span of the step once on the eager path, with a
+     positive time; the stamp kernel's arithmetic on known device work
+     (`torch.cuda._sleep` spins inside `step.inputs` and a nested
+     `step.teacher_fwd`, timed by CUDA events between the stamps): each
+     span's self time within STAGE_RTOL of its spins' event time, the
+     outer span's without the inner one's, and their sum within
+     STAGE_RTOL of the block's, run eagerly and as 5 replays of a
+     captured graph (counted 5 times on the graph path alone); and a
+     bench at 10 steps a call, where after a capturing call 2 calls
+     count 20 replays in `graph_counts` and 20 in each clocked span on
+     the graph path, nothing on the eager path, with the stages summing
+     to within STAGE_RTOL of the calls' CUDA-event time;
  17. unroll (`--unroll_steps`, one captured CUDA graph of the step
      replayed per step): (a) the RNG kernel, which reads its key from
      device memory, bit-equal to its plain version for keys with the
@@ -2475,10 +2485,10 @@ def phase_unroll(card, work):
 BENCH_RUNS = [({}, "ssl_train_images_per_sec_per_chip", 10),
               ({"UST_BENCH_MODEL": "deeplabv2_r50", "UST_BENCH_UNROLL": "2"},
                "ssl_train_images_per_sec_per_chip_deeplabv2_r50", 2)]
-PERF_BREAKDOWN_KEYS = [
-    "weak_aug_8img", "strong_aug_4img", "fda_4img", "cutmix_boxes",
-    "teacher_fwd_12img", "student_grad_21img", "optimizer_ema", "full_step",
-    "stage_sum"]                              # tools/perf_breakdown.py's
+# stage clock against CUDA events (phase 16): the stamps' own ~1 us and the
+# events' 0.5 us resolution against spans of milliseconds
+STAGE_RTOL = 0.05
+STAGE_REPLAYS = 5
 
 
 def run_module(module, args=(), env=None):
@@ -2527,6 +2537,7 @@ def phase_bench(card):
     bench run."""
     import torch
     from ust_run_tpu_torch import bench
+    from ust_run_tpu_torch.utils import trace
     infos = []
     for env, metric, unroll in BENCH_RUNS:
         t0 = time.perf_counter()
@@ -2534,21 +2545,13 @@ def phase_bench(card):
         infos.append(info)
         print(f"[bench] {json.dumps(res)}\n[bench] {json.dumps(info)}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    out, _ = run_module("ust_run_tpu_torch.perf_breakdown", ["--n", "5"])
-    stages = json.loads(out)
-    if list(stages) != PERF_BREAKDOWN_KEYS or not all(
-            isinstance(v, float) and math.isfinite(v) for v in
-            stages.values()):
-        fail(f"perf_breakdown: {out}")
-    print(f"[bench] perf_breakdown --n 5 (ms): {json.dumps(stages)}; "
-          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
 
     cfg, _ = bench.bench_config({})
     cfg.unroll_steps = 1
     b = bench.Bench(cfg, "cuda")
     b.calls(1)
     torch.cuda.synchronize()
+    trace.reset()
     torch.cuda.set_sync_debug_mode("error")
     try:
         last = b.calls(1)
@@ -2557,10 +2560,151 @@ def phase_bench(card):
     if not math.isfinite(float(last[0])):
         fail(f"bench step under the sync debug mode: loss {last[0]}")
     del b
+    stages = trace.stage_totals("cuda", "eager")
+    if any(n != 1 or not sec > 0 for n, sec in stages.values()) \
+            or any(n for n, _ in trace.stage_totals("cuda", "graph").values()):
+        fail(f"bench step's stage clock: {stages}")
+    ms = {name: round(sec * 1e3, 3) for name, (_, sec) in stages.items()}
     print("[bench] one bench step (index copy, step, lagged fetch) under "
-          "torch.cuda.set_sync_debug_mode('error'): no host-device sync | "
-          f"{card}", flush=True)
+          "torch.cuda.set_sync_debug_mode('error'): no host-device sync; "
+          f"its stage clock (device ms): {json.dumps(ms)} | {card}",
+          flush=True)
+    stage_clock_spins(card)
+    stage_clock_replays(card)
     return infos[0]["uniform_rng_launches"]
+
+
+def near(got, want):
+    return abs(got - want) <= STAGE_RTOL * want
+
+
+def stage_clock_spins(card):
+    """The stamp kernel's arithmetic on known work: spins in
+    `step.inputs` around a nested `step.teacher_fwd`, each stretch timed
+    by CUDA events recorded just after the stamps, the card kept busy
+    while the host queues them (else the card's wait for the host, which
+    the clock rightly counts, lies outside the events). The clock has to
+    give each span its own spins' time (in seconds), the outer one
+    without the inner one's, eagerly and summed over the replays of a
+    capture."""
+    import torch
+    from ust_run_tpu_torch.utils import trace
+    dev = torch.device("cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    spin = 2_000_000                  # cycles: ~1 ms at the boost clock
+
+    def block(mark):
+        with trace.span("step.inputs", dev):
+            mark(0)
+            torch.cuda._sleep(spin)
+            with trace.span("step.teacher_fwd", dev):
+                mark(1)
+                torch.cuda._sleep(3 * spin)
+                mark(2)
+            mark(3)
+            torch.cuda._sleep(spin)
+            mark(4)
+
+    def timed(i):
+        ev[i].record()
+
+    def untimed(i):
+        pass
+
+    def clocked(path, n):
+        got = trace.stage_totals(dev, path)
+        if {s: c for s, (c, _) in got.items()} != {
+                s: n * (s in ("step.inputs", "step.teacher_fwd"))
+                for s in trace.STAGES}:
+            fail(f"stage clock spins, {path}: counts {got}")
+        return got["step.inputs"][1] * 1e3, got["step.teacher_fwd"][1] * 1e3
+
+    for _ in range(2):                # warm the clocks
+        block(untimed)
+    torch.cuda.synchronize()
+    trace.reset()
+    torch.cuda._sleep(5 * spin)       # the card busy while the host queues
+    block(timed)
+    torch.cuda.synchronize()
+    inner = ev[1].elapsed_time(ev[2])
+    outer = ev[0].elapsed_time(ev[1]) + ev[3].elapsed_time(ev[4])
+    whole = ev[0].elapsed_time(ev[4])
+    inputs, teacher = clocked("eager", 1)
+    if not (near(teacher, inner) and near(inputs, outer)
+            and near(inputs + teacher, whole)):
+        fail(f"stage clock spins, eager (ms): inputs {inputs} against "
+             f"{outer}, teacher_fwd {teacher} against {inner}, sum against "
+             f"{whole}")
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        block(untimed)
+    torch.cuda.synchronize()
+    trace.reset()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(5 * spin)
+    start.record()
+    for _ in range(STAGE_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    g_inputs, g_teacher = clocked("graph", STAGE_REPLAYS)
+    clocked("eager", 0)
+    g_whole = start.elapsed_time(end)
+    if not (near(g_teacher, STAGE_REPLAYS * inner)
+            and near(g_inputs, STAGE_REPLAYS * outer)
+            and near(g_inputs + g_teacher, g_whole)):
+        fail(f"stage clock spins, {STAGE_REPLAYS} replays (ms): inputs "
+             f"{g_inputs}, teacher_fwd {g_teacher}, sum against {g_whole}; "
+             f"one eager block: {outer}, {inner}")
+    del graph
+    trace.reset()
+    print(f"[bench] stage clock on spins (ms, clock against CUDA events): "
+          f"eager inputs {inputs:.4f} / {outer:.4f}, teacher_fwd "
+          f"{teacher:.4f} / {inner:.4f}, sum {inputs + teacher:.4f} / "
+          f"{whole:.4f}; {STAGE_REPLAYS} replays: {g_inputs:.4f}, "
+          f"{g_teacher:.4f}, sum {g_inputs + g_teacher:.4f} / {g_whole:.4f} "
+          f"| {card}", flush=True)
+
+
+def stage_clock_replays(card):
+    """The bench at 10 steps a call: after the capturing call, 2 calls
+    count 20 replays, each clocked span 20 times on the graph path and
+    none on the eager path, and the stages add up to the calls' CUDA-event
+    time."""
+    import torch
+    from ust_run_tpu_torch import bench
+    from ust_run_tpu_torch.semisup import step as pstep
+    from ust_run_tpu_torch.utils import trace
+    cfg, _ = bench.bench_config({})
+    cfg.unroll_steps = 10
+    b = bench.Bench(cfg, "cuda")
+    b.calls(1)
+    torch.cuda.synchronize()
+    pstep.reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    b.calls(2)
+    end.record()
+    torch.cuda.synchronize()
+    replays = pstep.graph_counts["replays"]
+    graph = trace.stage_totals("cuda", "graph")
+    eager = trace.stage_totals("cuda", "eager")
+    call_ms = start.elapsed_time(end)
+    total = sum(sec for _, sec in graph.values()) * 1e3
+    if replays != 20 or any(n != replays or not sec > 0
+                            for n, sec in graph.values()) \
+            or any(n for n, _ in eager.values()) or not near(total, call_ms):
+        fail(f"bench stage clock on the graph path: {replays} replays, "
+             f"graph {graph}, eager {eager}, sum {total} ms against "
+             f"{call_ms} ms")
+    del b
+    ms = {name: round(sec * 1e3 / replays, 3)
+          for name, (_, sec) in graph.items()}
+    print(f"[bench] 2 calls of 10 replays: each clocked span counted "
+          f"{replays} times on the graph path, none eager; stages "
+          f"{total:.2f} ms against {call_ms:.2f} ms by CUDA events; ms a "
+          f"step {json.dumps(ms)} | {card}", flush=True)
 
 
 def steps_one_by_one(trainer, n):

@@ -19,7 +19,7 @@ semisup/step.py:multi_step), on the CPU.
     tests/test_torch_spatial_halo.py, each part equals the index_add_
     fold it replaces, bit for bit (integer values, exact in any order).
   * `--deterministic` is read by every entry (train, train_mnms, test,
-    bench, perf_breakdown): at 1 cuDNN is deterministic and does not
+    bench): at 1 cuDNN is deterministic and does not
     benchmark, and `random`/`np.random` are seeded from `--seed` as the
     JAX CLI seeds them (ust_run_tpu/cli.py:69-71, called here); at 0
     cuDNN benchmarks and nothing is seeded.
@@ -43,7 +43,7 @@ from torch_unroll import (assert_states_equal, corpus, hp_for, index_rows,
                           new_state)
 from torch_threads import single_thread  # noqa: F401
 from ust_run_tpu.models import deeplab as jax_deeplab
-from ust_run_tpu_torch import bench, cli, perf_breakdown, test as test_entry
+from ust_run_tpu_torch import bench, cli, test as test_entry
 from ust_run_tpu_torch import train, train_mnms
 from ust_run_tpu_torch.engine.trainer import set_numerics
 from ust_run_tpu_torch.models import deeplab
@@ -196,8 +196,6 @@ ENTRIES = {
     "train_mnms": (cli, lambda root: train_mnms.main, ["--seed", "6"], 6),
     "test": (test_entry, lambda root: test_entry.main, [], 1337),
     "bench": (bench, lambda root: bench.main, [], 1337),
-    "perf_breakdown": (perf_breakdown, lambda root: perf_breakdown.main,
-                       [], 1337),
 }
 
 

@@ -52,12 +52,12 @@ print(" ".join(mods))
         "engine.evaluator", "engine.checkpoint", "test", "nan_replay",
         "parity_runs", "data.dl_utils", "data.transform", "data.ssda",
         "data.extra_transforms", "parallel.spatial", "bench",
-        "perf_breakdown")} <= mods
+        "utils.trace")} <= mods
 
 
 def test_no_cpu_fallback(tmp_path, monkeypatch):
     """Without CUDA, every entry raises unless the CPU is asked for."""
-    from ust_run_tpu_torch import bench, nan_replay, perf_breakdown
+    from ust_run_tpu_torch import bench, nan_replay
     from ust_run_tpu_torch import test as test_entry
     from ust_run_tpu_torch import train
     from ust_run_tpu_torch.ops import fused_conv, rng
@@ -78,8 +78,6 @@ def test_no_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         nan_replay.main(["--dump", str(tmp_path), "--", "--dataset",
                          "fundus", "--data_root", str(tmp_path)])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        perf_breakdown.main([])
     # (bench.main also starts its watchdog; its subprocess test is in
     # tests/test_torch_bench.py)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -3,7 +3,7 @@
 num_eval_iter, so each call runs two steps (`semisup.step.multi_step`,
 eager bodies on the CPU) and its two metric rows are drained one call
 behind. The run writes the same log lines (all but the epoch's it/s and
-images/s and the echo of the flags) and ends in the same state, bit for
+images/s, its stage times and the echo of the flags) and ends in the same state, bit for
 bit, and so does a `--load` resume of each run; the K rule is JAX's
 (trainer.py:113-115)."""
 
@@ -38,6 +38,7 @@ def _lines(model_root):
     lines = [_STAMP.sub("", ln).replace(model_root, "ROOT")
              for ln in text.splitlines()]
     return [ln for ln in lines if ln.strip() and " it/s, " not in ln
+            and " stages, device ms a step: " not in ln
             and not ln.startswith("Namespace(")]
 
 

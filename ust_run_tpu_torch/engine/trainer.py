@@ -39,9 +39,16 @@ ust_run_tpu/engine/trainer.py).
     (`state.pt`, `batches.pt` with the run's `unroll`; replayed by
     `python -m ust_run_tpu_torch.nan_replay`) and exits with code 3;
     `--profile_dir` writes a torch.profiler Chrome trace of the first
-    epoch's calls 2-3 (steps 2-3 at unroll 1; one file per rank); on a
-    terminal a tqdm bar shows the last drained step. With none of them
-    set, the step path is unchanged.
+    epoch's calls 2-3 (steps 2-3 at unroll 1; one file per rank), where
+    the port's spans (utils/trace.py) name host ranges: `call.*` on
+    every path, the step's `step.*` only where a step runs eagerly (a
+    replay runs none of the step's Python); on a terminal a tqdm bar
+    shows the last drained step. With none of them
+    set, the step path is unchanged;
+  * at each epoch's end, beside its images/s line, the epoch's device ms
+    a step in each clocked span of the step, by path (`graph`: replays
+    of the captured step; `eager`), from the stage clock of
+    utils/trace.py read after the epoch's last fetch.
 """
 
 import logging
@@ -64,6 +71,7 @@ from ust_run_tpu_torch.semisup.state import (backbone_arch, build_model,
 from ust_run_tpu_torch.semisup.step import (HyperParams, draw_feeds,
                                             host_to_device, multi_step,
                                             step_fn, unpack_metrics)
+from ust_run_tpu_torch.utils import trace
 from ust_run_tpu_torch.utils.device import resolve_device
 from ust_run_tpu_torch.utils.logging_utils import MetricWriter
 from ust_run_tpu_torch.utils.meters import AverageMeter
@@ -335,6 +343,7 @@ class Trainer:
         stop_after = int(os.environ.get("UST_STOP_AFTER_ITERS", "0"))
         logging.info("%d iterations per epoch", cfg.num_eval_iter)
         logging.info("%d epoch in all.", max_epoch)
+        self._stage_mark = self._stage_totals()
         for epoch_num in range(self.start_epoch, max_epoch):
             if epoch_num > self.start_epoch:
                 self.new_epoch(epoch_num)
@@ -351,6 +360,7 @@ class Trainer:
             imgs = cfg.num_eval_iter * (cfg.label_bs + cfg.unlabel_bs)
             logging.info("epoch %d: %.1f it/s, %.1f images/s",
                          epoch_num + 1, cfg.num_eval_iter / dt, imgs / dt)
+            self._log_stages(epoch_num)
             self._log_epoch(parts)
             if os.environ.get("UST_WNORM_LOG") and self.is_main:
                 log_weight_health(epoch_num, self.state.student)
@@ -382,6 +392,32 @@ class Trainer:
         prof.export_chrome_trace(path)
         logging.info("profiler trace written to %s", path)
         self.train_steps(max(n - 3 * k, 0))
+
+    def _stage_totals(self):
+        return {path: trace.stage_totals(self.device, path)
+                for path in trace.PATHS}
+
+    def _log_stages(self, epoch_num):
+        """The epoch's device ms a step in each clocked span of the step,
+        on each path that ran steps in it: the stage clock's difference
+        since the last mark. Called after the epoch's last fetch, so
+        reading the clock adds no wait to a step."""
+        now, before = self._stage_totals(), self._stage_mark
+        self._stage_mark = now
+        parts = []
+        for path in trace.PATHS:
+            steps = now[path]["step.update"][0] \
+                - before[path]["step.update"][0]
+            if steps <= 0:
+                continue
+            ms = ", ".join(
+                f"{name.split('.', 1)[1]} "
+                f"{1e3 * (sec - before[path][name][1]) / steps:.2f}"
+                for name, (_, sec) in now[path].items())
+            parts.append(f"{path} x{steps}: {ms}")
+        if parts:
+            logging.info("epoch %d stages, device ms a step: %s",
+                         epoch_num + 1, "; ".join(parts))
 
     def _progress_bar(self, epoch_num):
         """The reference's live tqdm bar (train.py:874-879), on a terminal

@@ -56,7 +56,8 @@ from ust_run_tpu_torch.ops import augment, cutmix, fda, rng
 from ust_run_tpu_torch.semisup.state import CurriculumQueue, lr_at
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils import metrics as M
-from ust_run_tpu_torch.utils import ramps
+from ust_run_tpu_torch.utils import ramps, trace
+from ust_run_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,14 +154,15 @@ def draw_feed(state, hp, step=None):
     from `state.host_generator` in that order (the order the step used
     them in before it took a feed, so the same generators give the same
     draws), and that step's numbers."""
-    host = state.host_generator
-    key = rng.draw_key(host)
-    draws = cutmix.HostDraws(host)
-    boxes = [cutmix.cutmix_box_params(draws, hp.patch, hp.cutmix_prob)
-             for _ in range(hp.unlabel_bs)]
-    fallback = cutmix.cutmix_box_params(draws, hp.patch, p=1.0)
-    return pack_feed(hp, state.step if step is None else step, state.epoch,
-                     key, boxes, fallback)
+    with span("call.feeds"):
+        host = state.host_generator
+        key = rng.draw_key(host)
+        draws = cutmix.HostDraws(host)
+        boxes = [cutmix.cutmix_box_params(draws, hp.patch, hp.cutmix_prob)
+                 for _ in range(hp.unlabel_bs)]
+        fallback = cutmix.cutmix_box_params(draws, hp.patch, p=1.0)
+        return pack_feed(hp, state.step if step is None else step,
+                         state.epoch, key, boxes, fallback)
 
 
 def draw_feeds(state, hp, k):
@@ -185,10 +187,11 @@ def unpack_feed(feed, hp):
 def host_to_device(array, device):
     """A host numpy array -> tensor on `device`; to a CUDA device through
     pinned memory without blocking."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+    with span("call.to_device"):
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if torch.device(device).type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
 
 
 def decode_mask(labels, dataset):
@@ -374,8 +377,10 @@ def build_inputs(state, data, idx, hp, mesh=None, *, feed):
     # ------ teacher, one 3-group call (train.py:643-647) ------------------
     ulb_x_w_ul = ulb_x_w * (1 - img_box) + mix_img * img_box
     ulb_x_w_lu = mix_img * (1 - img_box) + ulb_x_w * img_box
-    tea_logits = teacher_forward(
-        state.teacher, torch.cat([ulb_x_w, ulb_x_w_ul, ulb_x_w_lu]), mesh)
+    with span("step.teacher_fwd", dev):
+        tea_logits = teacher_forward(
+            state.teacher, torch.cat([ulb_x_w, ulb_x_w_ul, ulb_x_w_lu]),
+            mesh)
     logits_w, logits_w_ul, logits_w_lu = torch.split(tea_logits, b_ulb)
     pseudo_label, mask = _pseudo_from_logits(logits_w, hp)
     pl_w_ul, mask_w_ul = _pseudo_from_logits(logits_w_ul, hp)
@@ -624,11 +629,17 @@ def apply_update(state, inp, loss, aux, hp, mesh=None):
 
 def step_body(state, data, idx, feed, hp, mesh=None):
     """One step from its index batch and feed (after the gradients were
-    set to None); returns the packed metrics (on the device)."""
-    inp = build_inputs(state, data, idx, hp, mesh, feed=feed)
-    loss, aux = loss_terms(state, inp, hp, mesh)
-    loss.backward()
-    return apply_update(state, inp, loss, aux, hp, mesh)
+    set to None); returns the packed metrics (on the device). Each part
+    is a clocked span (utils/trace.py)."""
+    dev = feed.device
+    with span("step.inputs", dev):
+        inp = build_inputs(state, data, idx, hp, mesh, feed=feed)
+    with span("step.student_fwd", dev):
+        loss, aux = loss_terms(state, inp, hp, mesh)
+    with span("step.backward", dev):
+        loss.backward()
+    with span("step.update", dev):
+        return apply_update(state, inp, loss, aux, hp, mesh)
 
 
 def _eager_step(state, data, idx, feed, hp, mesh=None):
@@ -649,9 +660,10 @@ graph_counts = dict(captures=0, replays=0)
 
 
 def reset_counts():
-    """Zero rng.launches and `graph_counts`."""
+    """Zero rng.launches, `graph_counts` and the stage clock."""
     rng.launches = 0
     graph_counts.update(dict.fromkeys(graph_counts, 0))
+    trace.reset()
 
 
 class StepGraph:
@@ -668,10 +680,11 @@ class StepGraph:
     def replay(self, state, idx, feed):
         """One step: `idx` and `feed` into the static inputs, the replay;
         returns the static metrics (valid until the next replay)."""
-        self.feed.copy_(feed)
-        for name, t in self.idx.items():
-            t.copy_(idx[name])
-        self.graph.replay()
+        with span("call.replay"):
+            self.feed.copy_(feed)
+            for name, t in self.idx.items():
+                t.copy_(idx[name])
+            self.graph.replay()
         state.step += 1
         graph_counts["replays"] += 1
         rng.launches += self.rng_per
