@@ -7,9 +7,10 @@
 Phases, one line each (or a few); any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every kernel library from the checkout at once
-     (nvcc for sm_90a: csrc/uniform_rng.cu and csrc/fused_conv.cu; g++
-     for the boundary-metric engine native/boundary.cc) and prints what
-     ptxas reports for each fused_conv kernel (registers, spills);
+     (nvcc for sm_90a: csrc/uniform_rng.cu, csrc/fused_conv.cu and
+     csrc/grouped_bn.cu; g++ for the boundary-metric engine
+     native/boundary.cc) and prints what ptxas reports for each
+     fused_conv and grouped_bn kernel (registers, spills);
   3. kernels: each kernel against its plain PyTorch version on the card,
      TF32 off, with its time, its bound and the time of the nearest
      PyTorch library call or chain:
@@ -35,6 +36,15 @@ Phases, one line each (or a few); any failure exits non-zero:
        `reference_chain` (BN+ReLU pass, cuDNN bf16 convolution, moment
        passes: the chain the kernel replaces), with bound, TFLOP/s and
        GB/s;
+     - GroupedBatchNorm's four passes (csrc/grouped_bn.cu: moments,
+       apply+ReLU, gradient sums, input gradient) at GBN_SHAPES against
+       their plain versions (sums within 1e-5 of the sum of their terms'
+       magnitudes; elementwise outputs within one ulp of the output's
+       type plus 4 float32 ulp of their terms' magnitudes), the sums of
+       two runs bit-equal; each timed on the device (calls captured in a
+       CUDA graph, the replay timed by CUDA events) beside its byte bound
+       at 3.35 TB/s and its plain version, and the layer's forward and
+       backward with the ReLU beside the operator chain it replaced;
   4. reference: the port's UNet train forward and gradients on the card
      against the same module on the CPU (float32, TF32 off) at a small
      input; then the fused SGD: one SGD(fused=True) update of the UNet's
@@ -46,7 +56,9 @@ Phases, one line each (or a few); any failure exits non-zero:
      --unroll_steps 10: a warm-up call of 3 steps (the first runs eagerly,
      then the step is captured as a CUDA graph and replayed) and 10 timed
      steps (replays), every loss finite, the RNG kernel run once per
-     step (launches outside graphs plus the captured one per replay), and
+     step (launches outside graphs plus the captured one per replay),
+     GroupedBatchNorm's passes (ops/grouped_bn.py, counted alike) the same
+     number of times every step, and
      no call in the timed steps that makes the host wait on the card
      (`torch.cuda.set_sync_debug_mode("error")`) other than the trainer's
      one-call-behind metric fetch;
@@ -271,6 +283,15 @@ FUSED_SHAPES = [("L1 student", 21, 256, 256, 64, 64),
                 ("L2 student", 21, 128, 128, 128, 128),
                 ("L3 student", 21, 64, 64, 256, 256)]
 RNG_SHAPE = (16, 256)             # the main path's fields: (n, S)
+# GroupedBatchNorm's passes: (n, c, h, w, dtype, group sizes) of the
+# UNet's L1 student call, its deepest teacher call, an R101 layer-3
+# student call (the dtype is filled in where torch is imported)
+GBN_SHAPES = [("unet L1 student", (21, 64, 256, 256, "bfloat16",
+                                   (4, 4, 4, 4, 4, 1))),
+              ("unet L5 teacher", (12, 1024, 16, 16, "bfloat16",
+                                   (4, 4, 4))),
+              ("r101 L3 student", (21, 1024, 32, 32, "float32",
+                                   (4, 4, 4, 4, 4, 1)))]
 RNG_SEED = 0x5EED_0F_F1E1D5
 # phase 14 (c): a --base_lr that drives the loss non-finite within a few
 # steps (step 8 on the H100, 6 at patch 32 on the CPU), and the iterations
@@ -322,6 +343,33 @@ def cuda_ms(fn, reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device ms per call of fn: `reps` calls captured as one CUDA graph
+    (after 3 warm-up calls on a side stream), the graph's replay timed by
+    CUDA events, so that the host's cost of a call, which dominates a
+    small pass run eagerly, is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -417,7 +465,16 @@ def ptxas_report(log):
              "conv_kernelILi64": "tma conv_kernel<BN=64>",
              "conv_kernelILi128": "tma conv_kernel<BN=128>",
              "bn_relu_conv3x3_kernelIf": "wmma-route kernel<float>",
-             "bn_relu_conv3x3_kernelI13__nv_bf": "wmma-route kernel<bf16>"}
+             "bn_relu_conv3x3_kernelI13__nv_bf": "wmma-route kernel<bf16>",
+             "sums_kernelI13__nv_bfloat16Li0": "sums<bf16, moments>",
+             "sums_kernelI13__nv_bfloat16Li1": "sums<bf16, gradient>",
+             "sums_kernelIfLi0": "sums<float, moments>",
+             "sums_kernelIfLi1": "sums<float, gradient>",
+             "finish_kernel": "finish",
+             "apply_kernelI13": "apply<bf16>",
+             "apply_kernelIf": "apply<float>",
+             "input_grad_kernelI13": "input_grad<bf16>",
+             "input_grad_kernelIf": "input_grad<float>"}
     out = []
     for name, info in entries.items():
         label = next((v for k, v in short.items() if k in name), name)
@@ -695,6 +752,170 @@ def phase_fused_conv(card):
                 shapes=rows)
 
 
+def gbn_operands(n, c, h, w, dtype, sizes, seed=0):
+    """The passes' operands on the card, drawn on the CPU from `seed`
+    (tests/test_torch_grouped_bn.py's draws): x, dy channels_last; (g, c)
+    inv, shift; (n, c) ds1, ds2; the groups' index."""
+    import numpy as np
+    import torch
+    from ust_run_tpu_torch.ops import grouped_bn as gbn
+    g = torch.Generator().manual_seed(seed)
+    cl = dict(memory_format=torch.channels_last)
+    x = (torch.randn((n, c, h, w), generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn((n, c, h, w), generator=g).to(dtype)
+    k = len(sizes)
+    inv = torch.rand((k, c), generator=g) + 0.5
+    shift = torch.randn((k, c), generator=g) * 0.3 + 0.5
+    ds1 = torch.randn((n, c), generator=g) * 1e-3
+    ds2 = torch.randn((n, c), generator=g) * 1e-3
+    seg = np.repeat(np.arange(k), sizes)
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    groups = gbn.Groups(torch.as_tensor(seg, dtype=torch.int32).cuda(),
+                        torch.as_tensor(off, dtype=torch.int32).cuda())
+    return (x.cuda().contiguous(**cl), dy.cuda().contiguous(**cl),
+            inv.cuda(), shift.cuda(), ds1.cuda(), ds2.cuda(), groups)
+
+
+def gbn_reference_chain(x, weight, bias, seg, avg, relu, eps=1e-5):
+    """The operator chain the kernels replace, for timing: the port's
+    GroupedBatchNorm train forward before the kernels (float32 moments
+    of a float32 copy, the group arithmetic on the (n,) int64 groups
+    `seg` and the (g, n) averaging matrix `avg`, the affine in x's dtype
+    in two passes), then the ReLU; autograd runs its backward."""
+    import torch
+    m1 = torch.mean(x, dim=(2, 3), dtype=torch.float32)
+    m2 = torch.mean(torch.square(x.float()), dim=(2, 3))
+    mean, mean2 = avg @ m1, avg @ m2
+    var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+    inv = torch.rsqrt(var + eps) * weight
+    inv_n, mean_n = inv[seg], mean[seg]
+    shift = mean_n * inv_n - bias
+    y = x * inv_n[:, :, None, None].to(x.dtype) \
+        - shift[:, :, None, None].to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def phase_grouped_bn(card):
+    """GroupedBatchNorm's four kernels against their plain versions at the
+    main path's shapes (tests/test_torch_grouped_bn.py's bars), then
+    timed by CUDA events beside their byte bound, the plain version, and
+    the whole layer's forward and backward (with the ReLU) against the
+    operator chain it replaced; all device times of captured calls
+    (`graph_ms`), as the step runs them."""
+    import torch
+    from ust_run_tpu_torch.models.layers import GroupedBatchNorm
+    from ust_run_tpu_torch.ops import grouped_bn as gbn
+
+    def close(got, want, tol, what):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= tol).all()):
+            fail(f"grouped_bn {what}: {int((err > tol).sum())} values "
+                 f"past the bar, max |d| {err.max().item():.3g}")
+
+    f32_eps = torch.finfo(torch.float32).eps
+    gbn.launches = 0
+    rows = []
+    for label, (n, c, h, w, dname, sizes) in GBN_SHAPES:
+        dtype = getattr(torch, dname)
+        x, dy, inv, shift, ds1, ds2, groups = gbn_operands(
+            n, c, h, w, dtype, sizes)
+        xf, seg = x.float(), groups.seg.long()
+        ulp = torch.finfo(dtype).eps
+        s1, s2 = gbn.moments(x)
+        p1, p2 = gbn.moments_plain(x)
+        close(s1, p1, 1e-5 * xf.abs().sum(dim=(2, 3)), f"{label} s1")
+        close(s2, p2, 1e-5 * (xf * xf).sum(dim=(2, 3)), f"{label} s2")
+        y = gbn.apply(x, inv, shift, groups, True)
+        want = gbn.apply_plain(x, inv, shift, groups, True)
+        close(y, want, ulp * want.float().abs() + 4 * f32_eps * (
+            (xf * inv[seg][:, :, None, None]).abs()
+            + shift[seg][:, :, None, None].abs()), f"{label} apply")
+        a, b = gbn.grad_sums(dy, y, x, groups, True)
+        pa, pb = gbn.grad_sums_plain(dy, y, x, groups, True)
+        gm = gbn._masked(dy, y, True)
+        close(a, pa, 1e-5 * torch.zeros_like(pa).index_add_(
+            0, seg, gm.abs().sum((2, 3))), f"{label} grad sum a")
+        close(b, pb, 1e-5 * torch.zeros_like(pb).index_add_(
+            0, seg, (gm * xf).abs().sum((2, 3))), f"{label} grad sum b")
+        dx = gbn.input_grad(dy, y, x, inv, groups, ds1, ds2, True)
+        want = gbn.input_grad_plain(dy, y, x, inv, groups, ds1, ds2, True)
+        close(dx, want, ulp * want.float().abs() + 4 * f32_eps * (
+            (gm * inv[seg][:, :, None, None]).abs()
+            + ds1[:, :, None, None].abs()
+            + (2 * xf * ds2[:, :, None, None]).abs()), f"{label} dx")
+        del xf, gm, want
+        again = (gbn.moments(x), gbn.grad_sums(dy, y, x, groups, True))
+        if not all(torch.equal(u, v) for u, v in
+                   zip((*again[0], *again[1]), (s1, s2, a, b))):
+            fail(f"grouped_bn {label}: two runs of the sums differ")
+
+        e = x.element_size() * x.numel()
+        passes = [
+            ("moments", 1, lambda: gbn.moments(x),
+             lambda: gbn.moments_plain(x)),
+            ("apply", 2, lambda: gbn.apply(x, inv, shift, groups, True),
+             lambda: gbn.apply_plain(x, inv, shift, groups, True)),
+            ("grad_sums", 3, lambda: gbn.grad_sums(dy, y, x, groups, True),
+             lambda: gbn.grad_sums_plain(dy, y, x, groups, True)),
+            ("input_grad", 4, lambda: gbn.input_grad(
+                dy, y, x, inv, groups, ds1, ds2, True),
+             lambda: gbn.input_grad_plain(dy, y, x, inv, groups, ds1, ds2,
+                                          True))]
+        for name, tensors, kern, plain in passes:
+            ms = graph_ms(kern, 20)
+            bound_ms = tensors * e / H100_BYTES_PER_S * 1e3
+            rows.append(dict(shape=label, pass_=name, n=n, c=c, h=h, w=w,
+                             dtype=dname, ms=ms,
+                             plain_ms=graph_ms(plain, 3), bound_ms=bound_ms,
+                             bound_by="bytes", share=bound_ms / ms,
+                             gbps=tensors * e / ms / 1e6))
+            r = rows[-1]
+            print(f"[kernels] grouped_bn {name} {label} {n}x{c}x{h}x{w} "
+                  f"{r['dtype']}: {ms * 1e3:.1f} us ({r['gbps']:.0f} GB/s), "
+                  f"bound {bound_ms * 1e3:.1f} us (bytes, {r['share']:.1%} "
+                  f"of it), plain {r['plain_ms']:.3f} ms | {card}",
+                  flush=True)
+
+        # the layer, forward and backward with the ReLU, against the chain
+        bn = GroupedBatchNorm(c).cuda()
+        xg = x.detach().requires_grad_()
+
+        def layer():
+            out = bn(xg, group_sizes=sizes, relu=True)
+            xg.grad = bn.weight.grad = bn.bias.grad = None
+            out.backward(dy)
+
+        avg = torch.zeros((len(sizes), n), device="cuda")
+        avg[seg, torch.arange(n, device="cuda")] = 1.0 / torch.tensor(
+            sizes, dtype=torch.float32, device="cuda")[seg]
+
+        def chain():
+            out = gbn_reference_chain(xg, bn.weight, bn.bias, seg, avg, True)
+            xg.grad = bn.weight.grad = bn.bias.grad = None
+            out.backward(dy)
+        layer_ms, chain_ms = graph_ms(layer, 5), graph_ms(chain, 5)
+        rows.append(dict(shape=label, pass_="layer fwd+bwd", n=n, c=c, h=h,
+                         w=w, dtype=dname, ms=layer_ms,
+                         library_ms=chain_ms,
+                         bound_ms=10 * e / H100_BYTES_PER_S * 1e3,
+                         bound_by="bytes"))
+        print(f"[kernels] grouped_bn layer forward+backward with the ReLU "
+              f"{label}: {layer_ms:.3f} ms on the device (bound "
+              f"{rows[-1]['bound_ms']:.3f} ms: 10 accesses an element), the "
+              f"replaced operator chain {chain_ms:.3f} ms | {card}",
+              flush=True)
+        del x, dy, y, dx, xg, bn
+        free_card()
+    if gbn.launches == 0:
+        fail("grouped_bn's kernels were not launched")
+    top = rows[0]
+    return dict(name="grouped_bn", route="cuda",
+                source="ust_run_tpu_torch/csrc/grouped_bn.cu",
+                replaces=None, launches=gbn.launches, ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by="bytes", library_ms=None, shapes=rows)
+
+
 def card_vs_cpu(make, grad_keys):
     """A model from `make()` (weights drawn from seed 1) in train mode on
     the CPU and, with the same weights, on the card, channels_last: the
@@ -813,7 +1034,7 @@ def phase_fused_sgd(card):
 def phase_main_path(card, work, profile_out=None):
     import torch
     from ust_run_tpu_torch.data.synthetic import generate
-    from ust_run_tpu_torch.ops import augment, fused_conv, rng
+    from ust_run_tpu_torch.ops import augment, fused_conv, grouped_bn, rng
     from ust_run_tpu_torch.semisup import step
 
     root = generate("fundus", os.path.join(work, "fundus"), n_train=8,
@@ -850,7 +1071,8 @@ def phase_main_path(card, work, profile_out=None):
     # replays it 10 times
     metrics, dt, peak_gib = step_window(trainer, WARMUP_STEPS, TIMED_STEPS)
     launches = {"uniform_rng": rng_launches(),
-                "bn_relu_conv3x3": fused_conv.launches}
+                "bn_relu_conv3x3": fused_conv.launches,
+                "grouped_bn": grouped_bn.launches}
     graphs = dict(step.graph_counts)
     if (graphs["captures"], graphs["replays"]) != (1, WARMUP_STEPS
                                                    + TIMED_STEPS - 1):
@@ -864,6 +1086,9 @@ def phase_main_path(card, work, profile_out=None):
     if launches["uniform_rng"] != steps:
         fail(f"uniform_rng launched {launches['uniform_rng']} times in "
              f"{steps} steps")
+    if launches["grouped_bn"] == 0 or launches["grouped_bn"] % steps:
+        fail(f"grouped_bn launched {launches['grouped_bn']} times in "
+             f"{steps} steps (the same passes every step expected)")
     imgs = TIMED_STEPS * (cfg.label_bs + cfg.unlabel_bs)
     step_ms = dt / TIMED_STEPS * 1e3
     last = metrics[-1]
@@ -875,7 +1100,9 @@ def phase_main_path(card, work, profile_out=None):
           f"{launches['uniform_rng']} (captured once, run by "
           f"{graphs['replays']} replays and the capturing call's eager "
           f"step), bn_relu_conv3x3 "
-          f"{launches['bn_relu_conv3x3']} (not on the model's path); no "
+          f"{launches['bn_relu_conv3x3']} (not on the model's path), "
+          f"grouped_bn {launches['grouped_bn']} "
+          f"({launches['grouped_bn'] // steps} a step, replays' included); no "
           f"host-device sync in the timed steps; last loss "
           f"{float(last['loss']):.4f} sup {float(last['sup_loss']):.4f} | "
           f"{card}", flush=True)
@@ -2936,13 +3163,16 @@ def main():
     t0 = time.perf_counter()
     builds = [functools.partial(cuda_build.build, "uniform_rng"),
               functools.partial(cuda_build.build, "fused_conv"),
-              boundary_native.build]
+              boundary_native.build,
+              functools.partial(cuda_build.build, "grouped_bn")]
     with ThreadPoolExecutor(len(builds)) as pool:    # every compiler at once
         libs = list(pool.map(lambda build: build(), builds))
     print(f"[build] " + ", ".join(os.path.relpath(lib, HERE) for lib in libs)
           + f" in {time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
     for line in ptxas_report(libs[1] + ".log"):
         print(f"[build] fused_conv.cu ptxas: {line}", flush=True)
+    for line in ptxas_report(libs[3] + ".log"):
+        print(f"[build] grouped_bn.cu ptxas: {line}", flush=True)
 
     set_numerics()
 
@@ -2953,7 +3183,8 @@ def main():
         return out
 
     kernels = timed("kernels", phase_kernels, card) \
-        + [timed("fused conv", phase_fused_conv, card)]
+        + [timed("fused conv", phase_fused_conv, card),
+           timed("grouped bn", phase_grouped_bn, card)]
     timed("reference", phase_reference, card)
     timed("fused sgd", phase_fused_sgd, card)
     work = os.path.join(HERE, "_smoke")

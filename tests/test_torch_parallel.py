@@ -117,21 +117,30 @@ def test_gradient_convention(tmp_path):
                - float(loss.detach())) > 0.05
 
 
-@pytest.mark.parametrize("world,sizes,valid", [
-    (2, (3, 1, 2), [True, True, False]),   # rank 1: nothing of group 2
-    (4, (2, 1), [True, True])])            # ranks 2 and 3: no sample
-def test_grouped_bn_cross_replica(tmp_path, world, sizes, valid):
+@pytest.mark.parametrize("world,sizes,valid,spatial", [
+    (2, (3, 1, 2), [True, True, False], 1),   # rank 1: nothing of group 2
+    (4, (2, 1), [True, True], 1),             # ranks 2 and 3: no sample
+    (2, (3, 1, 2), [True, True, False], 2)])  # row slabs, the ReLU fused
+def test_grouped_bn_cross_replica(tmp_path, world, sizes, valid, spatial):
     """GroupedBatchNorm on the ranks' slices: outputs, input gradients,
     the summed affine gradients and the running statistics of one
-    process, with empty slices and an invalid group."""
-    ref = td.run_bn(None, sizes, valid)
-    res = td.run_ranks(tmp_path, world, td.run_bn, sizes, valid)
-    inv = _rows(sizes, world)
+    process, with empty slices and an invalid group; on a space axis
+    (`spatial` 2: each rank a 16-row slab of every 32-row image, the
+    moments its slab's sums over the image's H*W) with the ReLU fused
+    into the layer."""
+    args = (sizes, valid) + ((0, 32, True) if spatial > 1 else ())
+    ref = td.run_bn(None, *args)
+    res = td.run_ranks(tmp_path, world, td.run_bn, *args, spatial=spatial)
     tol = dict(rtol=1e-6, atol=1e-6)
-    torch.testing.assert_close(torch.cat([r["y"] for r in res])[inv],
-                               ref["y"], **tol)
-    torch.testing.assert_close(torch.cat([r["gx"] for r in res])[inv],
-                               ref["gx"], **tol)
+    if spatial > 1:                         # one data index: all samples
+        for k in ("y", "gx"):
+            torch.testing.assert_close(torch.cat([r[k] for r in res], 2),
+                                       ref[k], **tol)
+    else:
+        inv = _rows(sizes, world)
+        for k in ("y", "gx"):
+            torch.testing.assert_close(torch.cat([r[k] for r in res])[inv],
+                                       ref[k], **tol)
     for k in ("gw", "gb"):
         torch.testing.assert_close(sum(r[k] for r in res), ref[k], rtol=1e-5,
                                    atol=1e-5)

@@ -59,21 +59,24 @@ S, GROUPS, SEED = 48, 3, 5
 @contextlib.contextmanager
 def planted(fault):
     """`fault` in place in this process for the block: "zero_halo",
-    "local_bn", "smooth" (ReLU -> tanh, max-pool -> average pool) or
-    None."""
+    "local_bn", "smooth" (ReLU -> tanh, the ReLUs fused into the
+    GroupedBatchNorms too; max-pool -> average pool) or None."""
     from torch import nn
     from ust_run_tpu_torch.models import layers
     from ust_run_tpu_torch.parallel import spatial
+    gbn = layers.GroupedBatchNorm
     saved = [(spatial, "halo_rows", spatial.halo_rows),
              (layers, "slab_hw", layers.slab_hw),
              (nn.ReLU, "forward", nn.ReLU.forward),
-             (nn.MaxPool2d, "forward", nn.MaxPool2d.forward)]
+             (nn.MaxPool2d, "forward", nn.MaxPool2d.forward),
+             (gbn, "forward", gbn.forward)]
     if fault == "zero_halo":
         spatial.halo_rows = lambda x, mesh: F.pad(x, (0, 0, 1, 1))
     elif fault == "local_bn":
         layers.slab_hw = lambda sizes, h, w: h * w
     elif fault == "smooth":
         nn.ReLU.forward = lambda self, x: torch.tanh(x)
+        gbn.forward = td.tanh_in_bn(gbn.forward)
         nn.MaxPool2d.forward = lambda self, x: F.avg_pool2d(x, 2)
     try:
         yield

@@ -275,13 +275,17 @@ def test_graph_counts_equal_replays_on_card():
 def test_stage_sum_matches_call_time_on_card():
     """On a card: the stages of one call of 10 replays add up to the
     call's CUDA-event time within 5% (outside them: the index and feed
-    copies, the metric rows, the stamps themselves)."""
+    copies, the metric rows, the stamps themselves). A spin keeps the
+    card busy while the host draws and queues the call, as in
+    `chip_smoke.stage_clock_spins`: else the events would also time the
+    card's wait for the host's draws, which no stage holds."""
     _card()
     b = _bench()
     b.calls(2)
     torch.cuda.synchronize()
     pstep.reset_counts()
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda._sleep(400_000_000)          # cycles: ~0.2 s at the boost clock
     start.record()
     b.calls(1)
     end.record()

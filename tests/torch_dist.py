@@ -300,23 +300,25 @@ def run_eval(mesh, dataset, root, size, domains, batch, state_dict):
 # GroupedBatchNorm alone
 
 
-def bn_inputs(sizes, c=8, hw=6, seed=0):
-    """(x, r): an NCHW input of the groups `sizes` and a random projection
-    for the loss sum(y * r)."""
+def bn_inputs(sizes, c=8, hw=6, seed=0, height=None):
+    """(x, r): an NCHW input of the groups `sizes` (hw x hw, or height x
+    hw) and a random projection for the loss sum(y * r)."""
     g = torch.Generator().manual_seed(seed)
     n = sum(sizes)
-    x = torch.randn((n, c, hw, hw), generator=g) * 1.5 + 0.3
-    r = torch.randn((n, c, hw, hw), generator=g)
+    shape = (n, c, height or hw, hw)
+    x = torch.randn(shape, generator=g) * 1.5 + 0.3
+    r = torch.randn(shape, generator=g)
     return x, r
 
 
-def run_bn(mesh, sizes, valid, seed=0):
+def run_bn(mesh, sizes, valid, seed=0, height=None, relu=False):
     """GroupedBatchNorm (weight U(0.5,1.5), bias N(0,0.1)) in train mode on
-    this rank's slice of each group, then the loss sum(y * r) of the slice
-    backward: (y, dL/dx of the slice, dL/dweight, dL/dbias shares,
-    running statistics)."""
+    this rank's slice of each group (on a space axis, its row slab of
+    each image, `height` rows high), the ReLU fused if `relu`, then the
+    loss sum(y * r) of the slice backward: (y, dL/dx of the slice,
+    dL/dweight, dL/dbias shares, running statistics)."""
     from ust_run_tpu_torch.models.layers import GroupedBatchNorm
-    x, r = bn_inputs(sizes, seed=seed)
+    x, r = bn_inputs(sizes, seed=seed, height=height)
     bn = GroupedBatchNorm(x.shape[1])
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
@@ -325,10 +327,11 @@ def run_bn(mesh, sizes, valid, seed=0):
     local = sizes
     if mesh is not None:
         sync_batchnorm(bn, mesh)
-        x, local = mesh.shard(x, sizes)
-        r, _ = mesh.shard(r, sizes)
+        nhwc = [t.permute(0, 2, 3, 1) for t in (x, r)]
+        (x, local), (r, _) = (mesh.shard(t, sizes) for t in nhwc)
+        x, r = x.permute(0, 3, 1, 2), r.permute(0, 3, 1, 2)
     x.requires_grad_()
-    y = bn(x, group_sizes=local, group_valid=torch.tensor(valid))
+    y = bn(x, group_sizes=local, group_valid=torch.tensor(valid), relu=relu)
     gx, gw, gb = torch.autograd.grad((y * r).sum(), [x, bn.weight, bn.bias])
     return dict(y=y.detach(), gx=gx, gw=gw, gb=gb,
                 running_mean=bn.running_mean.clone(),
@@ -436,6 +439,16 @@ def run_train_entry(mesh, argv, env):
 # planted faults of the space axis (parallel/spatial.py)
 
 
+def tanh_in_bn(forward):
+    """GroupedBatchNorm's `forward` with the ReLU that a caller fuses into
+    the layer (relu=True) a tanh: the smooth models of the space-axis
+    tests."""
+    def bn_then_tanh(self, x, *args, relu=False, **kw):
+        y = forward(self, x, *args, **kw)
+        return torch.tanh(y) if relu else y
+    return bn_then_tanh
+
+
 @contextmanager
 def planted_slab(fault):
     """A fault of the zoo's slab operations in place in this process for
@@ -446,14 +459,18 @@ def planted_slab(fault):
     corners), "upsample_zeros" (zeros past the image's edges in
     upsample2x's halo instead of the edge row), "pool_zeros" (zeros
     instead of -inf in the max pool's), "zero_halo" (every halo zeroed),
-    or None; and "smooth", no fault: every F.relu a tanh, so that no kink
-    can flip (a model built inside the block keeps it)."""
+    or None; and "smooth", no fault: every F.relu, and every ReLU fused
+    into a GroupedBatchNorm (relu=True), a tanh, so that no kink can flip
+    (a model built inside the block keeps it)."""
     import torch.nn.functional as F
+    from ust_run_tpu_torch.models.layers import GroupedBatchNorm
     from ust_run_tpu_torch.parallel import spatial
     saved = [(spatial, "halo_rows", spatial.halo_rows),
              (spatial, "resize_align_corners",
-              spatial.resize_align_corners), (F, "relu", F.relu)]
+              spatial.resize_align_corners), (F, "relu", F.relu),
+             (GroupedBatchNorm, "forward", GroupedBatchNorm.forward)]
     halo = spatial.halo_rows
+    bn_forward = GroupedBatchNorm.forward
 
     def zeroed(x, mesh, top=1, bottom=1, fill="zeros", bounds=None):
         return F.pad(x, (0, 0, top, bottom))
@@ -480,6 +497,8 @@ def planted_slab(fault):
         spatial.halo_rows = zeroed
     elif fault == "smooth":
         F.relu = torch.tanh
+
+        GroupedBatchNorm.forward = tanh_in_bn(bn_forward)
     try:
         yield
     finally:

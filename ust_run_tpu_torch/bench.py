@@ -14,7 +14,8 @@ bench.py's JSON object: `metric`, `value` (images/s), `unit`,
 `vs_baseline`, `vs_baseline_range`, `baseline_img_per_sec` and
 `baseline_basis`. The card's name and power limit, the steps timed and
 the uniform-RNG kernel's launches that ran (`ops.rng.launches`: the eager
-ones, plus each replay's captured one) go to stderr.
+ones, plus each replay's captured one) and GroupedBatchNorm's
+(`ops.grouped_bn.launches`, counted alike) go to stderr.
 
 A call is `unroll` steps fed from one (unroll, batch) draw of indices,
 so the batches are those bench.py feeds its multi-step. Warm-up is 3
@@ -55,7 +56,7 @@ import torch
 from ust_run_tpu_torch.config import TrainConfig
 from ust_run_tpu_torch.engine.trainer import (Pending, indices_to_device,
                                               set_numerics)
-from ust_run_tpu_torch.ops import rng
+from ust_run_tpu_torch.ops import grouped_bn, rng
 from ust_run_tpu_torch.semisup import step as step_mod
 from ust_run_tpu_torch.semisup.state import build_model, create_train_state
 from ust_run_tpu_torch.semisup.step import HyperParams, unpack_metrics
@@ -266,6 +267,7 @@ def main(argv=None):
         "steps_run": bench.steps,
         # the CPU runs the kernel's plain version, which is no launch
         "uniform_rng_launches": launches if on_card else None,
+        "grouped_bn_launches": grouped_bn.launches if on_card else None,
         "graph_captures": step_mod.graph_counts["captures"],
         "graph_replays": step_mod.graph_counts["replays"],
         "last_loss": float(unpack_metrics(last, hp)["loss"])}),

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ust_run_tpu_torch.ops import grouped_bn
+
 
 def torch_conv_init_(weight, generator):
     """Conv2d weight (out, in, kh, kw): U(-b, b), b = 1/sqrt(in*kh*kw)
@@ -45,18 +47,22 @@ def _uniform_(t, bound, generator):
 def _group_consts(group_sizes, total, hw, device):
     """Per-call constants, made once per shape, for a batch of the groups
     `group_sizes` cut from groups of `total` samples (the same sizes
-    without a mesh): the (n,) group id of each sample, the (g, n)
-    averaging matrix (row i holds 1/total_i at group i's samples, so that
-    its product with the per-sample moments is the per-group mean, one
-    product with no atomics), and the (g,) unbiased-variance factor
-    cnt / max(cnt - 1, 1) with cnt = total * h * w."""
+    without a mesh): the groups' index (grouped_bn.Groups: each sample's
+    group, each group's first sample), the (g, n) averaging matrix (row i
+    holds 1/total_i at group i's samples, so that its product with the
+    per-sample moments is the per-group mean, one product with no
+    atomics), and the (g,) unbiased-variance factor cnt / max(cnt - 1, 1)
+    with cnt = total * h * w."""
     seg = np.repeat(np.arange(len(group_sizes)), group_sizes)
+    off = np.concatenate([[0], np.cumsum(group_sizes)])
     avg = np.zeros((len(group_sizes), len(seg)), np.float32)
     avg[seg, np.arange(len(seg))] = 1.0 / np.asarray(total, np.float32)[seg]
     cnt = np.asarray(total, np.float32) * np.float32(hw)
     corr = cnt / np.maximum(cnt - np.float32(1.0), np.float32(1.0))
-    return (torch.as_tensor(seg, dtype=torch.int64, device=device),
-            torch.as_tensor(avg, device=device),
+    index = grouped_bn.Groups(
+        torch.as_tensor(seg, dtype=torch.int32, device=device),
+        torch.as_tensor(off, dtype=torch.int32, device=device))
+    return (index, torch.as_tensor(avg, device=device),
             torch.as_tensor(corr, device=device))
 
 
@@ -79,9 +85,12 @@ class GroupedBatchNorm(nn.Module):
 
     Statistics are float32 whatever the compute dtype: per-sample
     moments, then the group average, var = max(E[x^2] - E[x]^2, 0). The
-    affine is applied as x*inv - shift in the compute dtype. Parameter
-    and buffer names follow torch.nn.BatchNorm2d, so state_dicts keep
-    upstream's layout.
+    affine x*inv - shift (and the ReLU that follows, when the caller
+    passes relu=True) is computed in float32 and rounded once to the
+    compute dtype. The train-mode passes over the activation are
+    ops/grouped_bn.py's (CUDA kernels on the card); the group arithmetic
+    between them is `_coeffs`. Parameter and buffer names follow
+    torch.nn.BatchNorm2d, so state_dicts keep upstream's layout.
 
     With `mesh` set (parallel.bind_mesh), the batch is this rank's
     slice of each group: `group_sizes` is the parallel.GroupSizes that
@@ -108,12 +117,15 @@ class GroupedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x, groups=1, group_sizes=None, group_valid=None):
+    def forward(self, x, groups=1, group_sizes=None, group_valid=None,
+                relu=False):
+        """`relu`: the ReLU that follows, fused into the normalisation."""
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (x.float() - self.running_mean[:, None, None]) \
                 * inv[:, None, None] + self.bias[:, None, None]
-            return y.to(x.dtype)
+            y = y.to(x.dtype)
+            return torch.relu(y) if relu else y
 
         n, c, h, w = x.shape
         if group_sizes is None:
@@ -127,40 +139,29 @@ class GroupedBatchNorm(nn.Module):
             if group_sizes.height is not None:
                 hw = slab_hw(group_sizes, h, w)
         group_sizes = tuple(group_sizes)
-        g = len(group_sizes)
         assert sum(group_sizes) == n, (group_sizes, n)
-        equal = len(set(group_sizes)) == 1
-        seg, avg, corr = _group_consts(group_sizes, tuple(total), hw,
-                                       x.device)
-
+        index, avg, corr = _group_consts(group_sizes, tuple(total), hw,
+                                         x.device)
         with torch.autocast(device_type=x.device.type, enabled=False):
-            if hw == h * w:
-                m1 = torch.mean(x, dim=(2, 3), dtype=torch.float32)  # (n, c)
-                m2 = torch.mean(torch.square(x.float()), dim=(2, 3))
-            else:       # a row slab: its sums over the image's H*W
-                m1 = torch.sum(x, dim=(2, 3), dtype=torch.float32) / hw
-                m2 = torch.sum(torch.square(x.float()), dim=(2, 3)) / hw
-            mean, mean2 = avg @ m1, avg @ m2                        # (g, c)
-            if self.mesh is not None:
-                mean, mean2 = self.mesh.sum_sharded(
-                    torch.cat([mean, mean2], dim=1)).split(c, dim=1)
-            var = torch.clamp(mean2 - torch.square(mean), min=0.0)
-            inv = torch.rsqrt(var + self.eps) * self.weight         # (g, c)
-            if equal:
-                mean_n = mean.repeat_interleave(n // g, dim=0)       # (n, c)
-                inv_n = inv.repeat_interleave(n // g, dim=0)
-            else:
-                mean_n = mean[seg]
-                inv_n = inv[seg]
-            shift = mean_n * inv_n - self.bias                      # (n, c)
-        dt = x.dtype
-        y = x * inv_n[:, :, None, None].to(dt) \
-            - shift[:, :, None, None].to(dt)
-
+            y, mean, var = grouped_bn.grouped_bn(
+                x, self.weight, self.bias,
+                functools.partial(self._coeffs, avg, hw), index, relu)
         with torch.no_grad():
-            self._fold_running(mean.detach(), var.detach() * corr[:, None],
-                               group_valid)
+            self._fold_running(mean, var * corr[:, None], group_valid)
         return y
+
+    def _coeffs(self, avg, hw, s1, s2, weight, bias):
+        """The group arithmetic on the per-sample sums s1, s2 ((n, c)
+        float32; on a row slab its sums, over the image's H*W `hw`):
+        the groups' (inv, shift, mean, var), each (g, c) float32, with
+        y = x * inv - shift."""
+        mean, mean2 = avg @ (s1 / hw), avg @ (s2 / hw)               # (g, c)
+        if self.mesh is not None:
+            mean, mean2 = self.mesh.sum_sharded(
+                torch.cat([mean, mean2], dim=1)).split(s1.shape[1], dim=1)
+        var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+        inv = torch.rsqrt(var + self.eps) * weight
+        return inv, mean * inv - bias, mean, var
 
     def _fold_running(self, mean, unbiased, group_valid):
         """Sequential EMA over groups in order (layers.py:163-179):

@@ -51,7 +51,8 @@ def _conv(cin, cout, k, stride=1, dilation=1):
 class Bottleneck(spatial.SlabAware):
     """1x1 -> 3x3 (stride, dilation) -> 1x1 x4, each followed by BN, with
     a 1x1 strided projection on the identity when `downsample`
-    (resnet.py:30-54). On a row slab the 3x3 takes its halo rows."""
+    (resnet.py:30-54). The ReLUs after bn1 and bn2 run inside them
+    (relu=True). On a row slab the 3x3 takes its halo rows."""
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
@@ -71,9 +72,9 @@ class Bottleneck(spatial.SlabAware):
     def forward(self, x, **gkw):
         sizes = gkw.get("group_sizes")
         mesh = spatial.slab_mesh(self, sizes)
-        out = F.relu(self.bn1(self.conv1(x), **gkw))
+        out = self.bn1(self.conv1(x), relu=True, **gkw)
         out = spatial.conv(self.conv2, out, mesh, sizes)
-        out = F.relu(self.bn2(out, **gkw))
+        out = self.bn2(out, relu=True, **gkw)
         out = self.bn3(self.conv3(out), **gkw)
         identity = x
         if self.downsample is not None:
@@ -125,7 +126,7 @@ class ResNet(spatial.SlabAware):
                    group_valid=group_valid)
         mesh = spatial.slab_mesh(self, group_sizes)
         x = spatial.conv(self.conv1, x, mesh, group_sizes)
-        x = F.relu(self.bn1(x, **gkw))
+        x = self.bn1(x, relu=True, **gkw)
         x = spatial.max_pool2d(x, 3, 2, 1, mesh, group_sizes)
         feats = []
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):

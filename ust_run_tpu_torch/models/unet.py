@@ -32,7 +32,8 @@ from ust_run_tpu_torch.parallel import spatial
 
 
 class DoubleConv(spatial.SlabAware):
-    """(conv3x3 -> BN -> ReLU) x2 (reference unet_parts.py:8-25).
+    """(conv3x3 -> BN -> ReLU) x2 (reference unet_parts.py:8-25), each
+    ReLU fused into its GroupedBatchNorm.
 
     With `mesh` bound (parallel.bind_mesh) and a call on a row slab (its
     GroupSizes carry the image's height), each 3x3 convolution takes its
@@ -52,13 +53,13 @@ class DoubleConv(spatial.SlabAware):
 
     def forward(self, x, **gkw):
         mesh = spatial.slab_mesh(self, gkw.get("group_sizes"))
-        for layer in self.double_conv:
-            if isinstance(layer, GroupedBatchNorm):
-                x = layer(x, **gkw)
-            elif mesh is not None and isinstance(layer, nn.Conv2d):
-                x = spatial.conv3x3(x, layer.weight, mesh)
-            else:
-                x = layer(x)
+        # each ReLU runs inside the BatchNorm before it (relu=True); the
+        # nn.ReLU modules stay in the Sequential for its module names
+        conv1, bn1, _, conv2, bn2, _ = self.double_conv
+        for conv, bn in ((conv1, bn1), (conv2, bn2)):
+            x = conv(x) if mesh is None \
+                else spatial.conv3x3(x, conv.weight, mesh)
+            x = bn(x, relu=True, **gkw)
         return x
 
 

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ust_run_tpu_torch.ops import augment, cutmix, fda, rng
+from ust_run_tpu_torch.ops import augment, cutmix, fda, grouped_bn, rng
 from ust_run_tpu_torch.semisup.state import CurriculumQueue, lr_at
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils import metrics as M
@@ -660,8 +660,10 @@ graph_counts = dict(captures=0, replays=0)
 
 
 def reset_counts():
-    """Zero rng.launches, `graph_counts` and the stage clock."""
+    """Zero rng.launches, grouped_bn.launches, `graph_counts` and the
+    stage clock."""
     rng.launches = 0
+    grouped_bn.launches = 0
     graph_counts.update(dict.fromkeys(graph_counts, 0))
     trace.reset()
 
@@ -669,13 +671,16 @@ def reset_counts():
 class StepGraph:
     """One captured step: the CUDA graph, its static index and feed inputs
     and metric output, what it was captured for (`key`), the addresses of
-    the state's tensors it reads and writes, and the RNG launches one
-    replay runs (recorded at capture, added to rng.launches per replay)."""
+    the state's tensors it reads and writes, and the RNG and
+    GroupedBatchNorm launches one replay runs (recorded at capture, added
+    to rng.launches and grouped_bn.launches per replay)."""
 
-    def __init__(self, key, graph, idx, feed, metrics, carried, rng_per):
+    def __init__(self, key, graph, idx, feed, metrics, carried, rng_per,
+                 gbn_per):
         self.key, self.graph = key, graph
         self.idx, self.feed, self.metrics = idx, feed, metrics
         self.carried, self.rng_per = carried, rng_per
+        self.gbn_per = gbn_per
 
     def replay(self, state, idx, feed):
         """One step: `idx` and `feed` into the static inputs, the replay;
@@ -688,6 +693,7 @@ class StepGraph:
         state.step += 1
         graph_counts["replays"] += 1
         rng.launches += self.rng_per
+        grouped_bn.launches += self.gbn_per
         return self.metrics
 
 
@@ -736,17 +742,18 @@ def _capture(state, data, idx, feed, hp, first_out, mesh=None):
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(state.generator)
     state.optimizer.zero_grad(set_to_none=True)
-    step, captured = state.step, rng.captured
+    step, captured = state.step, (rng.captured, grouped_bn.captured)
     try:
         with torch.cuda.graph(graph, stream=side):
             metrics = step_body(state, data, static_idx, static_feed, hp,
                                 mesh)
     finally:
         state.step = step                 # the capture ran no step
-    rng_per = rng.captured - captured
     graph_counts["captures"] += 1
     return StepGraph(_graph_key(data, hp, mesh), graph, static_idx,
-                     static_feed, metrics, _carried(state), rng_per)
+                     static_feed, metrics, _carried(state),
+                     rng.captured - captured[0],
+                     grouped_bn.captured - captured[1])
 
 
 _gloo_noted = False
