@@ -2,14 +2,16 @@
 model at the cell's shapes on the meta device (nothing is computed), and
 the table of the card's peaks.
 
-Convolution FLOPs are torch.utils.flop_counter's (2 per multiply-add,
-transposed convolutions included) over what a step runs: the teacher's
-forward of its 3 x unlabel_bs images, and the student's forward and
-backward of its 4 x unlabel_bs + label_bs + 1 images (the LQ image
-included, as the program's one batched call computes it). The backward
-computes no gradient for the input images, so the first convolution's
-input gradient is not counted. Bytes count each convolution's inputs and
-outputs once (forward and both gradients), in the cell's compute dtype.
+FLOPs are torch.utils.flop_counter's (2 per multiply-add: convolutions,
+transposed convolutions included, and matrix products where a family has
+them), counted in all and for the convolutions alone, over what a step
+runs: the teacher's forward of its 3 x unlabel_bs images, and the
+student's forward and backward of its 4 x unlabel_bs + label_bs + 1
+images (the LQ image included, as the program's one batched call
+computes it). The backward computes no gradient for the input images,
+so the first convolution's input gradient is not counted. Bytes count
+each convolution's inputs and outputs once (forward and both gradients),
+in the cell's compute dtype.
 """
 
 import functools
@@ -53,7 +55,8 @@ class _ConvBytes(TorchDispatchMode):
 
 
 def _count(config, images, backward):
-    """(FLOPs, conv elements moved) of one call on `images` images."""
+    """(FLOPs, convolution FLOPs, convolution elements moved) of one call
+    on `images` images."""
     with torch.device("meta"):
         model = models.build(config)
         x = torch.empty((images, config["patch"], config["patch"],
@@ -64,7 +67,10 @@ def _count(config, images, backward):
         y = model(x)
         if backward:
             y.sum().backward()
-    return flops.get_total_flops(), conv.elements
+    by_op = flops.get_flop_counts()["Global"]
+    conv_flops = sum(v for op, v in by_op.items()
+                     if op.__name__ in _CONV_OPS)
+    return flops.get_total_flops(), conv_flops, conv.elements
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,14 +81,15 @@ def forward_flops_per_image(config_json):
 @functools.lru_cache(maxsize=None)
 def _step_counts(config_json, label_bs, unlabel_bs):
     config = json.loads(config_json)
-    t_flops, t_el = _count(config, 3 * unlabel_bs, False)
-    s_flops, s_el = _count(config, 4 * unlabel_bs + label_bs + 1, True)
-    elem = DTYPE_BYTES[config["compute_dtype"]]
-    return t_flops + s_flops, (t_el + s_el) * elem
+    teacher = _count(config, 3 * unlabel_bs, False)
+    student = _count(config, 4 * unlabel_bs + label_bs + 1, True)
+    flops, conv_flops, conv_el = (t + s for t, s in zip(teacher, student))
+    return flops, conv_flops, conv_el * DTYPE_BYTES[config["compute_dtype"]]
 
 
 def step_counts(config, cell):
-    """(convolution FLOPs, convolution bytes) of one step of the cell."""
+    """(FLOPs, convolution FLOPs, convolution bytes) of one step of the
+    cell."""
     return _step_counts(json.dumps(config, sort_keys=True), cell["label_bs"],
                         cell["unlabel_bs"])
 

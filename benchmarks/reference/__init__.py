@@ -32,7 +32,9 @@ c2363ab84ea4635247ab87861fe9e0ff2bb35866:
              model call made per group and the SGD update and EMA written
              out.
 
-models.py is written from the papers and upstream's layout, not copied:
-torch.nn.BatchNorm2d per group stands for the port's GroupedBatchNorm,
-F.interpolate for its interpolation-matrix resize.
+The model families (families/unet.py, families/deeplabv2.py, found by
+name through models.build) are written from the papers and upstream's
+layout, not copied: torch.nn.BatchNorm2d per group stands for the port's
+GroupedBatchNorm, F.interpolate for its interpolation-matrix resize.
+models.py holds the layers whose precision the control lowers.
 """

@@ -117,10 +117,11 @@ def traced(started, window_s, window_steps):
         lambda: prog.eager_steps(started.data,
                                  started.stream.draw(t["eager_steps"])),
         t["eager_steps"], ops=True)
-    flops, conv_bytes = counting.step_counts(config, cell)
+    flops, conv_flops, conv_bytes = counting.step_counts(config, cell)
     return dict(config=config, cell=cell, window=win, ops=ops,
                 timed_steps=window_steps, timed_s=window_s,
-                conv_flops_per_step=flops, conv_bytes_per_step=conv_bytes,
+                flops_per_step=flops, conv_flops_per_step=conv_flops,
+                conv_bytes_per_step=conv_bytes,
                 uniform_rng_bytes=counting.uniform_rng_bytes(config, cell),
                 peaks=counting.peaks(torch.cuda.get_device_name())
                 if torch.cuda.is_available() else None)

@@ -42,6 +42,8 @@ def test_config_found_by_name(entry):
     assert config["reduced"] == entry["reduced"] == []
     assert config["source"] == entry["source"]
     assert config["assumed"]
+    family = registry.family(config["model"]["family"])
+    assert callable(family.build) and callable(family.init_rules)
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda w: w["name"])

@@ -45,10 +45,14 @@ print(" ".join(sorted({{m.split(".")[0] for m in sys.modules}})))
 
 def test_reference_loads_no_program():
     code = """
-import sys
+import sys, torch
 import benchmarks.reference, benchmarks.reference.step
 import benchmarks.reference.models, benchmarks.reference.ops
 import benchmarks.reference.losses
+from benchmarks import registry
+for c in registry.benchmark()["configs"]:
+    with torch.device("meta"):
+        benchmarks.reference.models.build(registry.config(c["name"]))
 print(" ".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
     tops = set(_fresh(code))
@@ -58,8 +62,9 @@ print(" ".join(sorted({m.split(".")[0] for m in sys.modules})))
 
 def test_reference_sources_name_no_program():
     here = os.path.join(ROOT, "benchmarks", "reference")
-    for f in os.listdir(here):
-        if f.endswith(".py"):
-            text = open(os.path.join(here, f)).read()
-            assert "import ust_run_tpu" not in text, f
-            assert "from ust_run_tpu" not in text, f
+    for sub, _, files in os.walk(here):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(sub, f)).read()
+                assert "import ust_run_tpu" not in text, f
+                assert "from ust_run_tpu" not in text, f

@@ -40,23 +40,6 @@ def test_line_keys(trace, eager):
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-@pytest.mark.parametrize("trace", [0, 1])
-def test_eager_cell_reports_its_own_metrics(trace):
-    """The eager cell's rate and per-layer metrics are its own (scoped by
-    `workloads`); memory and set-up are every cell's."""
-    line, _ = _run("unet_fundus.eager", trace)
-    want = {"train_img_per_s.eager", "peak_mem_gib", "setup_s"} \
-        if not trace else {"device_idle_pct.eager", "kernels_per_step.eager",
-                           "launch_api_ms_per_step.eager", "mfu.eager",
-                           "conv_ms_per_step.eager",
-                           "nonconv_ms_per_step.eager"}
-    got = set(line["metrics"])
-    # on the CPU the profiler sees no kernels, so the device readers find
-    # nothing to read; nothing else may come
-    assert got <= want and (trace or got == want), got
-    assert line["correct"], line["check"]
-
-
 def test_program_passes():
     """The port as it is agrees with the reference far inside the cell's
     limits (float32 on the CPU)."""
@@ -87,13 +70,24 @@ class Unchanged(Program):
                 if p in st and st[p].get("momentum_buffer") is not None}
 
 
-def test_unchanged_state_fails():
-    line, _ = _run("unet_fundus.graph", program_cls=Unchanged)
+UNETS = ["unet_fundus.graph", "unet_prostate.graph"]
+
+
+@pytest.mark.parametrize("name", UNETS)
+def test_unchanged_state_fails(name):
+    """An unchanged state reads 1 on every change number the cell
+    compares, and fails it."""
+    line, _ = _run(name, program_cls=Unchanged)
     assert not line["correct"]
-    assert line["check"]["change_gap_model"]["value"] == pytest.approx(1.0)
+    change = {k: v for k, v in line["check"].items()
+              if k.startswith("change_gap")}
+    assert change and all(v["value"] == pytest.approx(1.0)
+                          and v["value"] > v["limit"]
+                          for v in change.values()), change
 
 
-def test_half_batch_fails(monkeypatch):
+@pytest.mark.parametrize("name", UNETS)
+def test_half_batch_fails(monkeypatch, name):
     """Half of each group's rows left out of every loss term, the mean
     taken over the rest."""
     from ust_run_tpu_torch.semisup import step as step_mod
@@ -106,7 +100,7 @@ def test_half_batch_fails(monkeypatch):
                      mask=None if mask is None else mask[:n], **kw)
 
     monkeypatch.setattr(step_mod.L, "ce_plus_dice", half)
-    line, _ = _run("unet_fundus.graph")
+    line, _ = _run(name)
     assert not line["correct"]
     assert any(v["value"] > v["limit"] for v in line["check"].values())
 
@@ -137,7 +131,8 @@ class ReplayHalfBatch(Program):
 
 
 @pytest.mark.parametrize("name", ["unet_fundus.graph",
-                                  "deeplabv2_r101_fundus.graph"])
+                                  "deeplabv2_r101_fundus.graph",
+                                  "unet_prostate.graph"])
 def test_replay_half_batch_fails(name):
     """A fault confined to the steps after the first fails the second
     step's numbers, while the first step's read as sound."""
@@ -151,10 +146,12 @@ def test_replay_half_batch_fails(name):
                          "change_gap_params") if k in check), check
 
 
-def test_control_fails():
+@pytest.mark.parametrize("name", UNETS)
+def test_control_fails(name):
     """The reference in float8 (the control of the bf16 UNet) fails a
-    limit of the cell; float32 against itself reads 0."""
-    cell, config = tiny("unet_fundus.graph")
+    limit of the cell, and so does half the batch; the program in float32
+    passes."""
+    cell, config = tiny(name)
     r = readings.read_seed(config, cell, 11, torch.device("cpu"))
     limits = cell["limits"]
     assert any(r["control"][k] > v for k, v in limits.items()), r

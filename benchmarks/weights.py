@@ -1,45 +1,33 @@
 """Random weights of a configuration, made on the device from the seed.
 
-One uniform and one normal draw cover every parameter of a model, which
-the leaves then scale: for the U-Net torch's default convolution init,
-U(-b, b) with b = 1/sqrt(fan_in) (weights and biases); for DeepLabV2
-kaiming-normal fan-out convolutions in the backbone and N(0, 0.01) heads
-with zero biases. BatchNorm keeps weight 1, bias 0, running mean 0 and
-variance 1. Leaves are named as upstream's state_dict, which the
-program's models and the plain reference share.
+One uniform and one normal draw cover every parameter of a model, in the
+order of `named_parameters()`, which the leaves then scale by the rule
+the model's family gives each (`init_rules` of
+`reference/families/<family>.py`). BatchNorm keeps weight 1, bias 0,
+running mean 0 and variance 1. Leaves are named as upstream's state_dict,
+which the program's models and the plain reference share.
 """
-
-import math
 
 import torch
 from torch import nn
 
-
-def _fan_in(w):
-    return w.shape[1] * w[0, 0].numel()
+from benchmarks import registry
 
 
 def _rules(model, family):
     """Each parameter's ('uniform', bound) | ('normal', std) |
-    ('const', value)."""
+    ('const', value), in the order of `named_parameters()`."""
     bn = {f"{n}.{k}" for n, m in model.named_modules()
           if isinstance(m, nn.BatchNorm2d) for k in ("weight", "bias")}
-    params = dict(model.named_parameters())
+    own = registry.family(family).init_rules(model)
     rules = {}
-    for name, p in params.items():
+    for name, _ in model.named_parameters():
         if name in bn:
             rules[name] = ("const", 1.0 if name.endswith("weight") else 0.0)
-        elif family == "unet":
-            w = params[name.rsplit(".", 1)[0] + ".weight"]
-            rules[name] = ("uniform", 1.0 / math.sqrt(_fan_in(w)))
-        elif family == "deeplabv2" and name.startswith("classifier."):
-            rules[name] = ("normal", 0.01) if name.endswith("weight") \
-                else ("const", 0.0)
-        elif family == "deeplabv2":
-            rules[name] = ("normal", math.sqrt(2.0 / (p.shape[0]
-                                                       * p[0, 0].numel())))
+        elif name in own:
+            rules[name] = own[name]
         else:
-            raise ValueError(f"unknown model family {family!r}")
+            raise ValueError(f"family {family!r} gives {name} no init rule")
     return rules
 
 
