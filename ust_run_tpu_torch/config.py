@@ -191,7 +191,11 @@ def build_parser(default_dataset="BUSI", mnms=False) -> argparse.ArgumentParser:
                             choices=["fundus", "prostate", "BUSI"])
     parser.add_argument("--save_name", type=str, default="debug")
     parser.add_argument("--overwrite", action="store_true")
-    parser.add_argument("--model", type=str, default="unet")
+    parser.add_argument(
+        "--model", type=str, default="unet",
+        help="unet (bf16 with --amp 1), transunet (R50-ViT-B/16, bf16 with "
+             "--amp 1 but a float32 stem; one device), or the float32 zoo: "
+             "unet2d, unet2d_dsbn, deeplabv2, deeplabv2_r50")
     parser.add_argument("--max_iterations", type=int, default=60000)
     parser.add_argument("--num_eval_iter", type=int, default=500)
     parser.add_argument("--deterministic", type=int, default=1)

@@ -394,11 +394,13 @@ class Trainer:
         self.train_steps(max(n - 3 * k, 0))
 
     def _stage_totals(self):
-        return {path: trace.stage_totals(self.device, path)
+        return {path: trace.stage_totals(self.device, path,
+                                         trace.STAGES + trace.MODEL_SPANS)
                 for path in trace.PATHS}
 
     def _log_stages(self, epoch_num):
         """The epoch's device ms a step in each clocked span of the step,
+        and in each model span that ran in it (TransUNet's `model.vit`),
         on each path that ran steps in it: the stage clock's difference
         since the last mark. Called after the epoch's last fetch, so
         reading the clock adds no wait to a step."""
@@ -413,7 +415,8 @@ class Trainer:
             ms = ", ".join(
                 f"{name.split('.', 1)[1]} "
                 f"{1e3 * (sec - before[path][name][1]) / steps:.2f}"
-                for name, (_, sec) in now[path].items())
+                for name, (n, sec) in now[path].items()
+                if name in trace.STAGES or n > before[path][name][0])
             parts.append(f"{path} x{steps}: {ms}")
         if parts:
             logging.info("epoch %d stages, device ms a step: %s",

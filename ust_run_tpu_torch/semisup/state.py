@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ust_run_tpu_torch.models import DeepLabV2, UNet, Unet2D
+from ust_run_tpu_torch.models import DeepLabV2, UNet, Unet2D, transunet
 
 
 @dataclasses.dataclass
@@ -105,12 +105,17 @@ def lr_at(step, base_lr, max_iterations):
 
 
 def build_model(cfg, hp, generator, amp=False):
-    """The model zoo (ust_run_tpu/engine/trainer.py:45-69), weights drawn
-    from `generator` on the CPU. `amp` (bf16 autocast) reaches the UNet
-    alone: the JAX package gives the other families no compute dtype, so
-    they run in float32."""
+    """The model zoo (ust_run_tpu/engine/trainer.py:45-69) and the port's
+    TransUNet (R50-ViT-B/16 at `transunet.R50_VIT_B16`, for the step's
+    patch), weights drawn from `generator` on the CPU. `amp` (bf16
+    autocast) reaches the UNet and TransUNet: the JAX package gives the
+    other families no compute dtype, so they run in float32."""
     if cfg.model == "unet":
         return UNet(hp.channels, hp.num_classes, amp=amp) \
+            .init_weights_(generator)
+    if cfg.model == "transunet":
+        return transunet.TransUNet(hp.channels, hp.num_classes, hp.patch,
+                                   amp=amp, **transunet.R50_VIT_B16) \
             .init_weights_(generator)
     if cfg.model == "unet2d":
         return Unet2D(c=hp.channels, num_classes=hp.num_classes) \

@@ -52,7 +52,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ust_run_tpu_torch.ops import augment, cutmix, fda, grouped_bn, rng
+from ust_run_tpu_torch.ops import (attention, augment, cutmix, fda,
+                                   grouped_bn, rng)
 from ust_run_tpu_torch.semisup.state import CurriculumQueue, lr_at
 from ust_run_tpu_torch.utils import losses as L
 from ust_run_tpu_torch.utils import metrics as M
@@ -657,13 +658,16 @@ def step_fn(state, data, idx, hp, mesh=None):
 # Counts of the CUDA graph path (plain counts, reset by callers that want
 # to show a run went through it): graphs captured, and replays.
 graph_counts = dict(captures=0, replays=0)
+# The ops that count their launches and captured calls
+# (`launches`, `captured`).
+COUNTED = (rng, grouped_bn, attention)
 
 
 def reset_counts():
-    """Zero rng.launches, grouped_bn.launches, `graph_counts` and the
-    stage clock."""
-    rng.launches = 0
-    grouped_bn.launches = 0
+    """Zero the `launches` of rng, grouped_bn and attention,
+    `graph_counts` and the stage clock."""
+    for op in COUNTED:
+        op.launches = 0
     graph_counts.update(dict.fromkeys(graph_counts, 0))
     trace.reset()
 
@@ -671,16 +675,14 @@ def reset_counts():
 class StepGraph:
     """One captured step: the CUDA graph, its static index and feed inputs
     and metric output, what it was captured for (`key`), the addresses of
-    the state's tensors it reads and writes, and the RNG and
-    GroupedBatchNorm launches one replay runs (recorded at capture, added
-    to rng.launches and grouped_bn.launches per replay)."""
+    the state's tensors it reads and writes, and the launches of each op
+    of `COUNTED` that one replay runs (`per`, recorded at capture, added
+    to each op's `launches` per replay)."""
 
-    def __init__(self, key, graph, idx, feed, metrics, carried, rng_per,
-                 gbn_per):
+    def __init__(self, key, graph, idx, feed, metrics, carried, per):
         self.key, self.graph = key, graph
         self.idx, self.feed, self.metrics = idx, feed, metrics
-        self.carried, self.rng_per = carried, rng_per
-        self.gbn_per = gbn_per
+        self.carried, self.per = carried, per
 
     def replay(self, state, idx, feed):
         """One step: `idx` and `feed` into the static inputs, the replay;
@@ -692,8 +694,8 @@ class StepGraph:
             self.graph.replay()
         state.step += 1
         graph_counts["replays"] += 1
-        rng.launches += self.rng_per
-        grouped_bn.launches += self.gbn_per
+        for op, n in zip(COUNTED, self.per):
+            op.launches += n
         return self.metrics
 
 
@@ -742,7 +744,7 @@ def _capture(state, data, idx, feed, hp, first_out, mesh=None):
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(state.generator)
     state.optimizer.zero_grad(set_to_none=True)
-    step, captured = state.step, (rng.captured, grouped_bn.captured)
+    step, captured = state.step, [op.captured for op in COUNTED]
     try:
         with torch.cuda.graph(graph, stream=side):
             metrics = step_body(state, data, static_idx, static_feed, hp,
@@ -752,8 +754,8 @@ def _capture(state, data, idx, feed, hp, first_out, mesh=None):
     graph_counts["captures"] += 1
     return StepGraph(_graph_key(data, hp, mesh), graph, static_idx,
                      static_feed, metrics, _carried(state),
-                     rng.captured - captured[0],
-                     grouped_bn.captured - captured[1])
+                     tuple(op.captured - n
+                           for op, n in zip(COUNTED, captured)))
 
 
 _gloo_noted = False

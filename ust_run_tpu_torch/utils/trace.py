@@ -23,6 +23,12 @@ clock on the device that runs inside a captured CUDA graph.
     (`cpu_clock`, time.perf_counter_ns) keeps the same accounting on the
     host, along the "eager" path.
 
+A model span (`MODEL_SPANS`, beside the step's `STAGES`) is a slot of
+the same clock that a model's forward opens inside a step's stage: it
+clocks only while a step's stage is open, so its self time comes out of
+`step.teacher_fwd` or `step.student_fwd`, and a forward outside a step
+(evaluation, tests) leaves the clock alone.
+
 The stamps write only the accumulator, so they change no result.
 `stage_totals(device, path)` reads it (a copy to the host: not inside a
 step); `reset()` zeroes it. What the port spans:
@@ -33,6 +39,8 @@ step); `reset()` zeroes it. What the port spans:
   step.student_fwd  loss_terms (the student's forward, CE+Dice)     clocked
   step.backward     loss.backward()                                 clocked
   step.update       apply_update (SGD, EMA, hardness, queue, LQ)    clocked
+  model.vit         TransUNet's encoder forward, patch embedding to
+                    encoder_norm (models/transunet.py)     clocked in a step
   call.feeds        draw_feed / draw_feeds (host RNG draws)        host only
   call.to_device    host_to_device (pinning and the copy)          host only
   call.replay       one replay of the captured step                host only
@@ -45,11 +53,13 @@ import torch
 
 STAGES = ("step.inputs", "step.teacher_fwd", "step.student_fwd",
           "step.backward", "step.update")
+MODEL_SPANS = ("model.vit",)
 PATHS = ("graph", "eager")
 # A row of the accumulator: the clock at the row's last stamp, then the
-# nanoseconds and the count of each stage.
-_WIDTH = 1 + 2 * len(STAGES)
-_SLOT = {name: i for i, name in enumerate(STAGES)}
+# nanoseconds and the count of each stage and model span.
+_CLOCKED = STAGES + MODEL_SPANS
+_WIDTH = 1 + 2 * len(_CLOCKED)
+_SLOT = {name: i for i, name in enumerate(_CLOCKED)}
 
 cpu_clock = time.perf_counter_ns
 
@@ -119,7 +129,7 @@ class span:
     """A named span of the step (see the module's docstring): a host range
     under torch.profiler and, with `device`, a stage of the clock."""
 
-    __slots__ = ("name", "device", "stage", "_range")
+    __slots__ = ("name", "device", "stage", "_range", "_clocked")
 
     def __init__(self, name, device=None):
         self.name, self.device = name, device
@@ -130,13 +140,16 @@ class span:
         if _profiling():
             self._range = _host_range(self.name)
             self._range.__enter__()
-        if self.stage is not None:
+        # a model span clocks only inside a step's stage
+        self._clocked = self.stage is not None \
+            and (self.stage < len(STAGES) or bool(_open))
+        if self._clocked:
             _stamp(self.device, 1 + 2 * _open[-1] if _open else -1, -1)
             _open.append(self.stage)
         return self
 
     def __exit__(self, kind, value, tb):
-        if self.stage is not None:
+        if self._clocked:
             _open.pop()
             if kind is None:     # after an error (a failed capture), no stamp
                 s = self.stage
@@ -146,8 +159,9 @@ class span:
         return False
 
 
-def stage_totals(device, path):
-    """{stage: (count, seconds)} of every stage in `STAGES`, stamped on
+def stage_totals(device, path, spans=STAGES):
+    """{span: (count, seconds)} of every clocked span in `spans` (the
+    step's `STAGES`, or any of them and `MODEL_SPANS`), stamped on
     `device` along `path` ("graph": launches recorded into a capture, run
     by its replays; "eager": the rest) since the process started or the
     last `reset()`. On CUDA (the process's one card) this waits for the
@@ -161,8 +175,9 @@ def stage_totals(device, path):
         row = _acc[0][PATHS.index(path)].tolist()
     else:
         row = [0] * _WIDTH
+    slots = {name: _SLOT[name] for name in spans}
     return {name: (row[2 + 2 * i], row[1 + 2 * i] / 1e9)
-            for i, name in enumerate(STAGES)}
+            for name, i in slots.items()}
 
 
 def reset():
